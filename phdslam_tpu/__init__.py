@@ -1,4 +1,4 @@
-"""phdslam_tpu — TPU-native Rao-Blackwellized (C)PHD-SLAM framework.
+"""phdslam_tpu — Rao-Blackwellized (C)PHD-SLAM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 reference CUDA implementation (Nat-zewge/cuda-PHDSLAM); see SURVEY.md.
@@ -7,11 +7,10 @@ reference CUDA implementation (Nat-zewge/cuda-PHDSLAM); see SURVEY.md.
 import jax as _jax
 
 # The filter's linear algebra is tiny (2x2/4x4 covariances) and numerically
-# sensitive (Joseph-form updates, Mahalanobis gates). TPU's default matmul
-# precision computes einsum/dot in bfloat16 passes, which corrupts the EKF
-# enough to destabilize long runs (observed: 24 km divergence at P=1024 on
-# v5e vs 4 m on CPU at identical configs). Force full f32 multiplies; the
-# MXU cost is irrelevant at these shapes.
+# sensitive (Joseph-form updates, Mahalanobis gates). On NVIDIA GPUs XLA may
+# run f32 matmuls and einsums in TF32, which keeps about three decimal
+# digits — enough to corrupt the EKF over long runs. Force full f32
+# multiplies; the cost is irrelevant at these shapes.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from .config import SlamConfig, load_config

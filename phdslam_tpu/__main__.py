@@ -40,7 +40,7 @@ def main(argv=None):
     ap.add_argument("--chunk", type=int, default=64,
                     help="steps per on-device scan for the chunked runner")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="write an orbax checkpoint every N steps during "
+                    help="write a checkpoint every N steps during "
                          "the run (chunked runner; main.cpp:1262-1269)")
     ap.add_argument("--resume", metavar="CHECKPOINT", default=None,
                     help="resume a chunked run from a mid-run checkpoint "
@@ -65,6 +65,8 @@ def main(argv=None):
                          "(jax.distributed; same command on every host)")
     args = ap.parse_args(argv)
 
+    from .runtime.compile_cache import configure_compile_cache
+    configure_compile_cache()
     if args.distributed:
         from .parallel import distributed
         multi = distributed.initialize()

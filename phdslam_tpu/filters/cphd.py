@@ -1,6 +1,6 @@
 """Cardinalized PHD (CPHD) SLAM filter — Vo's analytic CPHD recursion.
 
-TPU-native rebuild of the reference's CPHD pipeline, which lives in
+Rebuild of the reference's CPHD pipeline, which lives in
 /root/reference/src/phdfilter.cu.bak (the live revision of that code path;
 the copy in phdfilter.cu:701-1822 is commented out — SURVEY.md §2.1/§3.5):
 
@@ -88,12 +88,11 @@ def cardinality_predict_batch(log_cn, log_cn_birth):
     """Batched cardinality convolution as a linear-domain Toeplitz MATMUL.
 
     cn_pred = cn (x) cn_birth: subtract each particle's max, exp to linear,
-    one [P, C+1] x [C+1, C+1] dot against the shared birth Toeplitz matrix
-    (MXU), log back. Numerically equivalent to the per-particle logsumexp
-    in f32 — exp(x - max) underflows at the same ~-88 relative magnitude
-    where logsumexp terms vanish — at ~1/25 the cost: the elementwise form
-    builds [P, C+1, C+1] grids (measured 26 ms at P=10240, C=128; this
-    form ~1 ms).
+    one [P, C+1] x [C+1, C+1] dot against the shared birth Toeplitz matrix,
+    log back. Numerically equivalent to the per-particle logsumexp in f32
+    — exp(x - max) underflows at the same ~-88 relative magnitude where
+    logsumexp terms vanish — without the elementwise form's
+    [P, C+1, C+1] grids.
     """
     C1 = log_cn.shape[-1]
     mx = jnp.max(log_cn, axis=-1, keepdims=True)       # [P, 1]
@@ -173,8 +172,8 @@ def log_esf_omit(log_lambda, lam_mask):
     one fully PARALLEL masked-logsumexp contraction. The reference's esfd
     pass (.bak:1249-1277) instead subtracts the omitted root back out of
     the full ESF per measurement; our round-2 form re-ran the additive
-    recursion per omitted m (a vmapped scan with [P, M, M+1] state —
-    measured 48.5 ms at P=10240, the post-psi1d CPHD frontier). This form
+    recursion per omitted m (a vmapped scan with [P, M, M+1] state). This
+    form
     keeps the recursion's numerical stability (additions only, unlike the
     reference's cancellation-prone subtraction) at O(M^2) parallel lanes.
     """
@@ -184,8 +183,7 @@ def log_esf_omit(log_lambda, lam_mask):
     # esfd[m, k] = logsum_i pref[m, i] + suf[m, k - i],  k in 0..M-1 —
     # computed as a max-subtracted LINEAR convolution (one shifted-suffix
     # build + one batched matvec) instead of a masked logsumexp over the
-    # [M, M, M+1] sum tensor (~6 elementwise passes; measured 19.6 ms at
-    # P=10240 vs ~7 for this form).
+    # [M, M, M+1] sum tensor (~6 elementwise passes).
     #
     # Numerical caveat (advisor, round 3): the max is shared PER ROW (one
     # pmax+smax per m), not per output order k. An output k whose dominant
@@ -273,8 +271,7 @@ def psi_terms(consts: CphdConstants, log_esf_full, log_esfd, log_cn_predict,
     #   H(j)    = logsum_{n >= j+1} [G(n, j) + cn_predict(n)].
     # H is one [C+1, M] grid shared by ALL measurements; the naive form
     # (the reference's computePsiKernel re-run per omitted z, and our
-    # round-2 vmap) builds [M, C+1, M] — the measured CPHD scaling
-    # frontier at P=10240 (BENCH.md). Exact reassociation, not an
+    # round-2 vmap) builds [M, C+1, M]. Exact reassociation, not an
     # approximation.
     M = z_mask.shape[0]
     jd = jnp.arange(M, dtype=dtype)[None, :]            # [1, M]
@@ -291,10 +288,8 @@ def psi_terms(consts: CphdConstants, log_esf_full, log_esfd, log_cn_predict,
         #   ip1d[m] = logsum_j esfd[m, j] + H_j
         #           = logsum_i pref[m, i] + logsum_d suf[m, d] + H_{i+d}
         # i.e. ONE per-particle [M+1, M+1] Toeplitz-of-H matmul against
-        # the suffix rows (MXU) instead of materializing the
-        # [M, M, M+1] convolution tensor (measured 17.4 ms of the 60 ms
-        # cphd_update at P=10240 — the esfd contraction dominated the
-        # cardinality machinery). Max-subtracted linear domain; same
+        # the suffix rows instead of materializing the [M, M, M+1]
+        # convolution tensor. Max-subtracted linear domain; same
         # shared-per-row-max underflow class as log_esf_omit (see its
         # docstring caveat).
         pref, suf = pref_suf                            # [M, M+1] each
@@ -322,21 +317,11 @@ def psi_terms(consts: CphdConstants, log_esf_full, log_esfd, log_cn_predict,
 # ----------------------------------------------------------------------------
 
 def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
-                        cfg: SlamConfig, det=None):
+                        cfg: SlamConfig):
     """Single-particle CPHD measurement update.
 
     Follows the .bak pipeline §3.5; returns
-    (new_mean, new_cov, new_weight, log_cn_update, dlog_w, overflow).
-
-    ``det`` optionally carries this particle's fused detection+top-T
-    results (vals [M, T] unnormalized pdw, idx [M, T], row_sum [M],
-    count [M]) from ops.pallas_detect.detection_topT_batch called with
-    min_fw=0, cb=0 — hoisted to batch level by :func:`cphd_update`. The
-    per-measurement lambda comes straight from the kernel's row sums and
-    the [M, K] grid is never formed here; the CPHD weight scale
-    exp(ip1d - ip0) kr/kd is UNIFORM per measurement, so the kernel's
-    top-T-by-pdw order equals the w_det order and min_feature_weight
-    thresholding is applied post-hoc (exact)."""
+    (new_mean, new_cov, new_weight, log_cn_update, dlog_w, overflow)."""
     K, D = mean.shape
     M = z.shape[0]
     dtype = mean.dtype
@@ -351,11 +336,8 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
 
     pre = ekf.ekf_preupdate(pose, mean, cov, cfg)
     det_valid = z_mask[:, None] & in_m[None, :]
-    if det is None:
-        logw_part, _ = ekf.ekf_detection_logw(pre, weight, z, cfg)
-        logw_part = jnp.where(det_valid, logw_part, LOG0)   # [M, K]
-    else:
-        logw_part = None
+    logw_part, _ = ekf.ekf_detection_logw(pre, weight, z, cfg)
+    logw_part = jnp.where(det_valid, logw_part, LOG0)   # [M, K]
 
     # compatibleZ (.bak:1567, :1695): a measurement is "compatible" when
     # any in-range feature sits within gate_threshold measurement-space
@@ -378,12 +360,8 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
 
     # lambda_m = log sum_j w_partial[j, m] + log kappa_rate - log kappa_density
     # (.bak:1206-1221)
-    if det is None:
-        log_lambda = masked_logsumexp(logw_part, det_valid, axis=-1) \
-            + safe_log(cfg.clutter_rate) - safe_log(cfg.clutter_density)
-    else:
-        log_lambda = safe_log(det[2]) \
-            + safe_log(cfg.clutter_rate) - safe_log(cfg.clutter_density)
+    log_lambda = masked_logsumexp(logw_part, det_valid, axis=-1) \
+        + safe_log(cfg.clutter_rate) - safe_log(cfg.clutter_density)
     log_lambda = jnp.where(z_mask, log_lambda, LOG0)
 
     esf_full = log_esf(log_lambda, z_mask)              # [M+1]
@@ -409,15 +387,12 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
 
     # GM weight update (cphdUpdateKernel, .bak:1436-1479)
     # detections: w = exp(w_partial + psi1d(z) - ip0 + log kr - log kd)
-    if det is None:
-        w_det = jnp.where(
-            det_valid,
-            jnp.exp(logw_part + ip1d[:, None] - ip0
-                    + safe_log(cfg.clutter_rate)
-                    - safe_log(cfg.clutter_density)),
-            0.0)
-    else:
-        w_det = None        # det route: only selected lanes are scaled
+    w_det = jnp.where(
+        det_valid,
+        jnp.exp(logw_part + ip1d[:, None] - ip0
+                + safe_log(cfg.clutter_rate)
+                - safe_log(cfg.clutter_density)),
+        0.0)
     # non-detections: w = exp(log w + ip1 - ip0 + log(1 - pd))
     # NB: the reference uses the configured pd here, not the per-feature
     # FOV-gated pd (.bak:1468-1471)
@@ -433,29 +408,15 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
 
     T = cfg.detection_topk
     if use_fast and 0 < T < K:
-        # two-stage selection + MXU one-hot row selection, exactly as the
-        # PHD fast path (see ops.gm_merge.select_live_topT / topcap_sort
-        # and BENCH.md): heaviest-T live detection lanes per measurement,
-        # then one global top-cap payload sort carrying full-lane ids.
+        # two-stage selection + deferred row gather, exactly as the PHD
+        # fast path (see ops.gm_merge.select_live_topT / topcap_sort):
+        # heaviest-T live detection lanes per measurement, then one global
+        # top-cap payload sort carrying full-lane ids.
         from ..ops.gm_merge import select_live_topT, topcap_sort
-        if det is not None:
-            # fused-kernel route: the CPHD scale is uniform per measurement
-            # (top-T-by-pdw == top-T-by-w_det); threshold the scaled values
-            # here. The kernel's live counts are pdw > 0 lanes — the
-            # overflow diagnostic may overcount when sub-threshold lanes
-            # sit beyond T (conservative).
-            vals_p, idx_d, _, count_d = det
-            scale = jnp.exp(ip1d - ip0) \
-                * (cfg.clutter_rate / cfg.clutter_density)       # [M]
-            vals_d = vals_p * scale[:, None]
-            act_sel = (vals_d >= min_fw) & (vals_p > 0)
-            n_live_d = jnp.sum(count_d)
-            n_kept_d = jnp.sum(jnp.minimum(count_d, T))
-        else:
-            wd = jnp.where(det_valid, w_det, 0.0)
-            vals_d, idx_d, n_live_d, n_kept_d = select_live_topT(
-                wd, jnp.full((M,), min_fw, dtype=dtype), T)
-            act_sel = vals_d > 0
+        wd = jnp.where(det_valid, w_det, 0.0)
+        vals_d, idx_d, n_live_d, n_kept_d = select_live_topT(
+            wd, jnp.full((M,), min_fw, dtype=dtype), T)
+        act_sel = vals_d > 0
         flat_d = K + jnp.arange(M, dtype=jnp.int32)[:, None] * K + idx_d
         red_w = jnp.concatenate([w_a, jnp.where(act_sel, vals_d, 0.0)
                                  .reshape(M * T)], axis=0)
@@ -467,8 +428,7 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
         n_compact = n_drop + (n_live_d - n_kept_d)
     elif use_fast:
         # scalar top-k lane selection (see ops.ekf; avoids materializing
-        # the [M*K] detection mean/cov grids). det is None on these
-        # branches (cphd_update only hoists detection when 0 < T < K).
+        # the [M*K] detection mean/cov grids)
         from ..ops.gm_merge import topk_compact_indices
         act_b = det_valid & (w_det >= min_fw)
         cand_w = jnp.concatenate([w_a, w_det.reshape(M * K)], axis=0)
@@ -496,10 +456,8 @@ def _cphd_update_single(pose, mean, cov, weight, z, z_mask, consts,
         return dict(cand=(cand_mean, cand_cov, cand_w, cand_act),
                     gather=None, log_cn=log_cn_update, dlog_w=dlog_w,
                     out_m=out_m, n_compact=n_compact, compat=compat)
-    # fast paths: DEFER the row gather to batch level (Pallas one-hot
-    # kernel + packed-plane combine, exactly as filters/phd.py — in-vmap
-    # XLA one-hots materialize [P, cap, K] and [..., cap, D] temps pad
-    # 32-128x under (8, 128) tiling); lane layout here is [K | M*K],
+    # fast paths: DEFER the row gather to batch level (packed-plane
+    # combine, exactly as filters/phd.py); lane layout here is [K | M*K],
     # no birth lanes
     k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(
         idx, K, M, False)
@@ -524,12 +482,9 @@ def _cphd_update_single_post(mg, pre_out, mean, cov, weight,
     all_cov = jnp.concatenate([mg_cov, cov], axis=0)
     all_w = jnp.concatenate([mg_w, jnp.where(out_m, weight, 0.0)], axis=0)
 
-    # one-hot matmul row moves (TPU gathers of tiny rows serialize)
     new_w, order = jax.lax.top_k(all_w, K)
-    n_all = all_w.shape[0]
-    oh = (order[:, None] == jnp.arange(n_all)[None, :]).astype(mean.dtype)
-    new_mean = oh @ all_mean
-    new_cov = (oh @ all_cov.reshape(n_all, D * D)).reshape(K, D, D)
+    new_mean = all_mean[order]
+    new_cov = all_cov[order]
     empty = new_w <= 0
     new_cov = jnp.where(empty[:, None, None], eye, new_cov)
     new_mean = jnp.where(empty[:, None], 0.0, new_mean)
@@ -567,10 +522,8 @@ def add_births(gm: GMState, pose, z, z_mask, cfg: SlamConfig,
 
     all_w = jnp.concatenate([gm.weight, b_w], axis=1)
     # top-K compaction via ONE variadic payload sort carrying the
-    # D + D(D+1)/2 SoA planes: batched take_along_axis of the [P, K+M,
-    # D, D] rows measured 78 ms at P=10240 (the gather-serialization
-    # lesson, BENCH.md); the sort network over K+M lanes is ~3 ms. Stable
-    # descending sort ties by original index like lax.top_k.
+    # D + D(D+1)/2 SoA planes (no separate row gather). Stable descending
+    # sort ties by original index like lax.top_k.
     planes = []
     for d in range(D):
         planes.append(jnp.concatenate([gm.mean[..., d], b_mean[..., d]],
@@ -602,57 +555,28 @@ def add_births(gm: GMState, pose, z, z_mask, cfg: SlamConfig,
 def cphd_update(state: FilterState, z, z_mask, consts, cfg: SlamConfig):
     """CPHD measurement update over all particles + birth injection for the
     next scan + cardinality convolution with the binomial birth cardinality."""
-    from ..ops.gm_merge import merge_batch_dispatch, \
-        merge_batch_dispatch_packed
+    from ..ops.gm_merge import merge_batch_dispatch
     gm = state.map_static
     K_, M_ = gm.mean.shape[-2], z.shape[0]
     D_ = gm.mean.shape[-1]
 
-    # hoist the fused detection+top-T kernel out of the vmap (exactly as
-    # filters/phd.py::_batched_update): min_fw=0, cb=0 — the kernel's row
-    # sums ARE the per-measurement lambda numerators, and thresholding
-    # waits for the Psi-derived scale inside _cphd_update_single
-    T_ = cfg.detection_topk
-    cap_ = cfg.merge_candidate_cap
-    det = None
-    if 0 < cap_ < (K_ + M_ * K_) and 0 < T_ < K_ and cfg.pallas_detect:
-        from ..ops.pallas_detect import detection_topT_batch
-        from ..ops.pallas_merge import pallas_available
-        from .phd import _detection_planes_single
-        interp = cfg.pallas_detect == 2
-        if interp or pallas_available():
-            planes = jax.vmap(lambda p, m, c, w: _detection_planes_single(
-                p, m, c, w, cfg))(state.pose, gm.mean, gm.cov, gm.weight)
-            z4 = jnp.stack([z[:, 0], z[:, 1], z_mask.astype(z.dtype),
-                            jnp.zeros_like(z[:, 0])], axis=1)
-            det = detection_topT_batch(
-                planes, z4, T_, 0.0, 0.0, interpret=interp,
-                adaptive=bool(getattr(cfg, "detect_adaptive", 0)))
-
-    if det is not None:
-        pre = jax.vmap(
-            lambda p, m, c, w, dv, di, dn, dc: _cphd_update_single(
-                p, m, c, w, z, z_mask, consts, cfg, det=(dv, di, dn, dc))
-        )(state.pose, gm.mean, gm.cov, gm.weight, *det)
-    else:
-        pre = jax.vmap(
-            lambda p, m, c, w: _cphd_update_single(p, m, c, w, z, z_mask,
-                                                   consts, cfg)
-        )(state.pose, gm.mean, gm.cov, gm.weight)
+    pre = jax.vmap(
+        lambda p, m, c, w: _cphd_update_single(p, m, c, w, z, z_mask,
+                                               consts, cfg)
+    )(state.pose, gm.mean, gm.cov, gm.weight)
     sorted_prefix = 0 < cfg.merge_candidate_cap < K_ + M_ * K_
     if pre["gather"] is not None:
-        # deferred Pallas gather + packed-plane merge (see filters/phd.py),
+        # deferred gather + packed-plane merge (see filters/phd.py),
         # with the candidate-width switch: live candidates occupy the
         # stage-2 weight-sorted prefix, so the gather + combine + merge
-        # run on the [:, :cap'] slice (same exactness argument as
-        # _pre_merge_phase's cwidths)
+        # run on the [:, :cap'] slice
         from .phd import (_post_compact_batched,
                           gather_merge_width_switched)
         mg = gather_merge_width_switched(pre["gather"], D_, cfg, K_,
                                          has_birth=False,
                                          sorted_prefix=sorted_prefix)
-        # batch-level post half (one payload sort + Pallas one-hot gather
-        # — same reasoning as the PHD path's _post_compact_batched)
+        # batch-level post half (one payload sort + gather, as the PHD
+        # path's _post_compact_batched)
         bits = dict(out_m=pre["out_m"], dlog_w=pre["dlog_w"],
                     n_compact=pre["n_compact"], s2=None)
         new_mean, new_cov, new_w, dlog_w, overflow = _post_compact_batched(

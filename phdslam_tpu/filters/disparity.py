@@ -1,6 +1,6 @@
 """Monocular SC-PHD SLAM in disparity space ("disparity pipeline").
 
-TPU-native rebuild of the reference's single-cluster PHD monocular pipeline
+Rebuild of the reference's single-cluster PHD monocular pipeline
 (/root/reference/src/phdfilter.cu:3892-5216, driver main.cpp:1324-1440).
 The reference's CPU SC-PHD (scphd_cpu.cpp) is an empty stub; the behavioral
 spec is ``disparityUpdate`` (SURVEY.md §3.4):
@@ -32,12 +32,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..config import SlamConfig
 from ..ops.gm_merge import compact_candidates, gm_merge
 from ..ops.math import LOG0, logsumexp, safe_log, sym, wrap_angle
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
+from ..pytree import pytree_dataclass
 
 
 # ----------------------------------------------------------------------------
@@ -99,7 +99,7 @@ def disparity_to_world(uvd, cam_pose, cfg: SlamConfig):
 # State
 # ----------------------------------------------------------------------------
 
-@struct.dataclass
+@pytree_dataclass
 class DisparityState:
     """DisparitySLAM equivalent (slamtypes.h:401-423), fixed capacity.
 
@@ -221,8 +221,8 @@ def _disparity_update_pre(cam_pose, cloud, feat_w, z, z_mask,
                           cfg: SlamConfig):
     """Pre-merge half of one particle's disparity update (fit + linear EKF
     + normalizers + compacted candidate set). The merge runs between the
-    halves so the batched step can hoist it out of vmap (the Pallas 3D
-    kernel's particle-block only engages batch-wide)."""
+    halves so the batched step can hoist it out of vmap and run one
+    batch-level merge."""
     K, N, _ = cloud.shape
     M = z.shape[0]
     dtype = cloud.dtype
@@ -370,10 +370,10 @@ def _disparity_update_single(cam_pose, cloud, feat_w, z, z_mask, key,
                              cfg: SlamConfig):
     """One particle's disparity update (pre -> merge -> post).
     Returns (new_cloud, new_feat_w, dlog_w, overflow)."""
-    from ..ops.gm_merge import merge_dispatch
     K = cloud.shape[0]
     pre_out = _disparity_update_pre(cam_pose, cloud, feat_w, z, z_mask, cfg)
-    mg = merge_dispatch(*pre_out["cand"], cfg, K)
+    mg = gm_merge(*pre_out["cand"], cfg.min_separation, K,
+                  cfg.distance_metric)
     return _disparity_update_post(mg, pre_out, cam_pose, cloud, feat_w,
                                   key, cfg)
 
@@ -405,9 +405,8 @@ def disparity_step(state: DisparityState, z, z_mask, dt, do_predict,
 
     P = state.cam_pose.shape[0]
     keys = jax.random.split(k_upd, P)
-    # merge hoisted out of the vmap (the Pallas 3D kernel's particle block
-    # only engages batch-wide; the in-vmap XLA while_loop merge dominated
-    # the step at 0.37 s/step)
+    # merge hoisted out of the vmap: one batch-level merge (the kernel
+    # runs one program per particle over the whole batch)
     from ..ops.gm_merge import merge_batch_dispatch
     pre = jax.vmap(lambda cp, cl, fw: _disparity_update_pre(
         cp, cl, fw, z, z_mask, cfg))(state.cam_pose, state.cloud,

@@ -58,10 +58,9 @@ def eap_expected_map_flat(gm: GMState, log_weight, cfg: SlamConfig,
 def _sort_lanes_desc(mean, cov, w):
     """Payload-sort merge lanes weight-descending per batch row.
 
-    One variadic lax.sort carrying the D + D(D+1)/2 + 1 SoA planes — no
-    [B, N, N] one-hot (85 GB at the dense tree's first level) and no
-    batched gather (BENCH.md measured-and-rejected list). Enables the
-    Pallas merge's sorted-principal mode and the width switcher.
+    One variadic lax.sort carrying the D + D(D+1)/2 + 1 SoA planes.
+    Enables the merge kernel's sorted-principal mode and the width
+    switcher.
     """
     B, N, D = mean.shape
     planes = [mean[..., d] for d in range(D)]
@@ -90,7 +89,7 @@ def eap_expected_map(gm: GMState, log_weight, cfg: SlamConfig,
 
     Each level reshapes [Pl, K] -> [Pl/2, 2K] and merges each pair's 2K
     lanes back to ``cfg.eap_tree_cap`` (default K) clusters; each level's
-    lanes are weight-sorted first so the Pallas merge runs in
+    lanes are weight-sorted first so the merge kernel runs in
     sorted-principal mode with width switching. Under NamedSharding the
     early levels pair within-shard particles; only the last
     log2(n_devices) levels move one map per device — O(K D^2 log N) bytes

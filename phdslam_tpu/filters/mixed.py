@@ -1,6 +1,6 @@
 """Joint static+dynamic (jump-Markov mixed) GM-PHD measurement update.
 
-TPU-native rebuild of ``phdUpdateKernelMixed`` (/root/reference/src/
+Rebuild of ``phdUpdateKernelMixed`` (/root/reference/src/
 phdfilter.cu:2323-2635) and its orchestration in ``phdUpdateSynth``
 (:3412-3461, merge/copy-back :3703-3726): the per-measurement normalizer sums
 detection terms over BOTH the 2D static and 4D dynamic maps plus clutter and
@@ -28,7 +28,7 @@ import jax.numpy as jnp
 from ..config import SlamConfig
 from ..models import measurement
 from ..ops import ekf
-from ..ops.gm_merge import compact_candidates, merge_dispatch
+from ..ops.gm_merge import compact_candidates, gm_merge
 from ..ops.math import LOG0, logsumexp, safe_log
 from ..types import FilterState, GMState
 
@@ -73,8 +73,9 @@ def _merge_map(mean, cov, weight, mean_det, cov_upd, w_det, det_valid,
     cand_mean, cand_cov, cand_w, cand_act, n_compact = compact_candidates(
         cand_mean, cand_cov, cand_w, cand_act,
         cfg.merge_candidate_cap if cap is None else cap)
-    mg_mean, mg_cov, mg_w, _, n_dropped = merge_dispatch(
-        cand_mean, cand_cov, cand_w, cand_act, cfg, K)
+    mg_mean, mg_cov, mg_w, _, n_dropped = gm_merge(
+        cand_mean, cand_cov, cand_w, cand_act, cfg.min_separation, K,
+        cfg.distance_metric)
     n_dropped = n_dropped + n_compact
 
     all_mean = jnp.concatenate([mg_mean, mean], axis=0)
@@ -240,8 +241,7 @@ def _fast_select(pdw, dv, norm, w_a, act_a, w_birth, act_c, K, M, T, cap,
 
 
 def _update_mixed_pre(pose, mean_s, cov_s, w_s, mean_d, cov_d, w_d,
-                      z, z_label, z_mask, cfg: SlamConfig,
-                      det_s=None, det_d=None, prev_z=None):
+                      z, z_label, z_mask, cfg: SlamConfig, prev_z=None):
     """Fast-path pre half of the mixed update (single particle, vmapped).
 
     Mirrors the static filter's deferred-gather pipeline
@@ -250,13 +250,7 @@ def _update_mixed_pre(pose, mean_s, cov_s, w_s, mean_d, cov_d, w_d,
     (phdfilter.cu:2480-2505): norm[m] sums detection terms over BOTH maps
     plus clutter and the label-gated birth weight(s). Neither [M, K]
     normalized grid nor any [N, D, D] candidate array is materialized —
-    the merges and row gathers run at batch level.
-
-    ``det_s``/``det_d`` optionally carry this particle's fused Pallas
-    detection+top-T results per map (min_fw=0, cb=0 — see the CPHD route,
-    filters/cphd.py): the joint normalizer is uniform per measurement, so
-    the kernel's top-T-by-pdw order equals the normalized order and
-    thresholding happens post-hoc (exact)."""
+    the merges and row gathers run at batch level."""
     Ks = mean_s.shape[0]
     Kd = mean_d.shape[0]
     M = z.shape[0]
@@ -273,17 +267,13 @@ def _update_mixed_pre(pose, mean_s, cov_s, w_s, mean_d, cov_d, w_d,
 
     dv_s = z_mask[:, None] & in_s[None, :]
     dv_d = z_mask[:, None] & in_d[None, :]
-    if det_s is None or det_d is None:
-        pdw_s = jnp.where(dv_s, ekf.ekf_detection_linear(pre_s, w_s, z), 0.0)
-        pdw_d = jnp.where(dv_d, ekf.ekf_detection_linear(pre_d, w_d, z), 0.0)
-        # materialize once: both grids feed the normalizer, top-T sweeps
-        # and cardinality sums (see the static path's barrier note)
-        pdw_s, pdw_d = jax.lax.optimization_barrier((pdw_s, pdw_d))
-        sum_s = jnp.sum(pdw_s, axis=1)
-        sum_d = jnp.sum(pdw_d, axis=1)
-    else:
-        pdw_s = pdw_d = None        # grids live only in the kernel's VMEM
-        sum_s, sum_d = det_s[2], det_d[2]
+    pdw_s = jnp.where(dv_s, ekf.ekf_detection_linear(pre_s, w_s, z), 0.0)
+    pdw_d = jnp.where(dv_d, ekf.ekf_detection_linear(pre_d, w_d, z), 0.0)
+    # materialize once: both grids feed the normalizer, top-T sweeps
+    # and cardinality sums (see the static path's barrier note)
+    pdw_s, pdw_d = jax.lax.optimization_barrier((pdw_s, pdw_d))
+    sum_s = jnp.sum(pdw_s, axis=1)
+    sum_d = jnp.sum(pdw_d, axis=1)
 
     bw_s, bw_d, birth_norm = _birth_weights(z_label, M, cfg, dtype)
 
@@ -326,36 +316,10 @@ def _update_mixed_pre(pose, mean_s, cov_s, w_s, mean_d, cov_d, w_d,
         b_mean_d = measurement.seed_birth_velocity(b_mean_d, prev_z,
                                                    z_mask, cfg)
 
-    def det_select(det, w_a, act_a, wb, act_c, K, cap_m):
-        """Stage 1 from the fused kernel's top-T (joint-norm scaled,
-        thresholded post-hoc — order-exact; count_d counts pdw > 0 lanes
-        so the overflow diagnostic may overcount, as on the CPHD route)."""
-        from ..ops.gm_merge import topcap_sort
-        vals_p, idx_d, _, count_d = det
-        w_sel = jnp.where(vals_p > 0, vals_p / norm[:, None], 0.0)
-        act_sel = (w_sel >= min_fw) & (vals_p > 0)
-        w_sel = jnp.where(act_sel, w_sel, 0.0)
-        flat_d = K + jnp.arange(M, dtype=jnp.int32)[:, None] * K + idx_d
-        red_w = jnp.concatenate([w_a, w_sel.reshape(M * T), wb], axis=0)
-        red_act = jnp.concatenate([act_a, act_sel.reshape(M * T), act_c],
-                                  axis=0)
-        red_flat = jnp.concatenate(
-            [jnp.arange(K, dtype=jnp.int32), flat_d.reshape(M * T),
-             K + M * K + jnp.arange(M, dtype=jnp.int32)], axis=0)
-        idx, cand_w, sel_act, n_drop = topcap_sort(red_w, red_act,
-                                                   red_flat, cap_m)
-        n_extra = jnp.sum(count_d) - jnp.sum(jnp.minimum(count_d, T))
-        return idx, cand_w, sel_act, n_drop + n_extra
-
-    def gather_for(det, pdw, dv, w_a, act_a, wb, act_c, mean, cov, pre,
+    def gather_for(pdw, dv, w_a, act_a, wb, act_c, mean, cov, pre,
                    b_mean, b_cov, K, cap_m):
-        if det is not None:
-            idx, cand_w, sel_act, n_compact = det_select(
-                det, w_a, act_a, wb, act_c, K, cap_m)
-        else:
-            idx, cand_w, sel_act, n_compact = _fast_select(
-                pdw, dv, norm, w_a, act_a, wb, act_c, K, M, T, cap_m,
-                min_fw)
+        idx, cand_w, sel_act, n_compact = _fast_select(
+            pdw, dv, norm, w_a, act_a, wb, act_c, K, M, T, cap_m, min_fw)
         k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(
             idx, K, M, True)
         t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
@@ -364,10 +328,10 @@ def _update_mixed_pre(pose, mean_s, cov_s, w_s, mean_d, cov_d, w_d,
             n_compact
 
     cap_d = getattr(cfg, "merge_candidate_cap_dynamic", 0) or cap
-    g_s, nc_s = gather_for(det_s, pdw_s, dv_s, w_a_s, act_a_s, wb_s,
+    g_s, nc_s = gather_for(pdw_s, dv_s, w_a_s, act_a_s, wb_s,
                            act_c_s, mean_s, cov_s, pre_s, b_mean_s,
                            b_cov_s, Ks, cap)
-    g_d, nc_d = gather_for(det_d, pdw_d, dv_d, w_a_d, act_a_d, wb_d,
+    g_d, nc_d = gather_for(pdw_d, dv_d, w_a_d, act_a_d, wb_d,
                            act_c_d, mean_d, cov_d, pre_d, b_mean_d,
                            b_cov_d, Kd, cap_d)
 
@@ -387,55 +351,17 @@ def _batched_mixed_update(pose, gs, gd, z, z_label, z_mask,
     """All-particle mixed update with both merges, candidate gathers and
     selection sorts hoisted OUT of the vmap (the static path's
     _batched_update structure) — the 2D static and 4D dynamic maps each get
-    one batch-level Pallas merge (phdfilter.cu:2323-2635 is a first-class
-    kernel in the reference; this is its premium path here too)."""
-    from ..ops.gm_merge import merge_batch_dispatch_packed
-    from .phd import (_detection_planes_single, _finish_candidates_packed,
-                      _update_single_post)
-
+    one batch-level merge (phdfilter.cu:2323-2635 is a first-class kernel
+    in the reference; this is its main path here too)."""
     Ks = gs.mean.shape[-2]
     Kd = gd.mean.shape[-2]
-    M = z.shape[0]
-    T = cfg.detection_topk
-
-    # hoist the fused detection+top-T kernel out of the vmap for BOTH maps
-    # (min_fw=0, cb=0: row sums feed the joint normalizer; thresholding is
-    # post-hoc — the CPHD pattern, filters/cphd.py)
-    det_s = det_d = None
-    if 0 < T < min(Ks, Kd) and cfg.pallas_detect:
-        from ..ops.pallas_detect import detection_topT_batch
-        from ..ops.pallas_merge import pallas_available
-        interp = cfg.pallas_detect == 2
-        if interp or pallas_available():
-            z4 = jnp.stack([z[:, 0], z[:, 1], z_mask.astype(z.dtype),
-                            jnp.zeros_like(z[:, 0])], axis=1)
-            pl_s = jax.vmap(lambda p, m, c, w: _detection_planes_single(
-                p, m, c, w, cfg))(pose, gs.mean, gs.cov, gs.weight)
-            pl_d = jax.vmap(lambda p, m, c, w: _detection_planes_single(
-                p, m, c, w, cfg))(pose, gd.mean, gd.cov, gd.weight)
-            adpt = bool(getattr(cfg, "detect_adaptive", 0))
-            det_s = detection_topT_batch(pl_s, z4, T, 0.0, 0.0,
-                                         interpret=interp, adaptive=adpt)
-            det_d = detection_topT_batch(pl_d, z4, T, 0.0, 0.0,
-                                         interpret=interp, adaptive=adpt)
-
     pz_args = () if prev_z is None else (prev_z,)
-    if det_s is not None:
-        pre = jax.vmap(
-            lambda p, ms, cs, ws, md, cd, wd, ds0, ds1, ds2, ds3, dd0, dd1,
-            dd2, dd3, *pz: _update_mixed_pre(
-                p, ms, cs, ws, md, cd, wd, z, z_label, z_mask, cfg,
-                det_s=(ds0, ds1, ds2, ds3), det_d=(dd0, dd1, dd2, dd3),
-                prev_z=pz[0] if pz else None)
-        )(pose, gs.mean, gs.cov, gs.weight, gd.mean, gd.cov, gd.weight,
-          *det_s, *det_d, *pz_args)
-    else:
-        pre = jax.vmap(
-            lambda p, ms, cs, ws, md, cd, wd, *pz: _update_mixed_pre(
-                p, ms, cs, ws, md, cd, wd, z, z_label, z_mask, cfg,
-                prev_z=pz[0] if pz else None)
-        )(pose, gs.mean, gs.cov, gs.weight, gd.mean, gd.cov, gd.weight,
-          *pz_args)
+    pre = jax.vmap(
+        lambda p, ms, cs, ws, md, cd, wd, *pz: _update_mixed_pre(
+            p, ms, cs, ws, md, cd, wd, z, z_label, z_mask, cfg,
+            prev_z=pz[0] if pz else None)
+    )(pose, gs.mean, gs.cov, gs.weight, gd.mean, gd.cov, gd.weight,
+      *pz_args)
 
     # topcap_sort emits a weight-descending live prefix for both maps;
     # gather + combine + merge run candidate-width switched on it
@@ -444,9 +370,8 @@ def _batched_mixed_update(pose, gs, gd, z, z_label, z_mask,
     mg_s = gather_merge_width_switched(pre["g_s"], 2, cfg, Ks)
     mg_d = gather_merge_width_switched(pre["g_d"], 4, cfg, Kd)
 
-    # batch-level post halves (one payload sort + Pallas one-hot gather
-    # per map — the per-particle [K, 2K] one-hot compaction materializes
-    # its dot operand under vmap; see filters/phd.py)
+    # batch-level post halves (one payload sort + gather per map; see
+    # filters/phd.py)
     from .phd import _post_compact_batched
     bits_s = dict(out_m=pre["out_s"], dlog_w=pre["dlog_w"],
                   n_compact=pre["nc_s"], s2=None)
@@ -466,7 +391,7 @@ def mixed_update(state: FilterState, z, z_mask, cfg: SlamConfig,
     """Mixed-model measurement update over all particles.
 
     Routes to the batch-hoisted fast pipeline (two-stage selection +
-    Pallas 2D/4D merges) when eligible; the reference-shaped per-particle
+    batch 2D/4D merges) when eligible; the reference-shaped per-particle
     route remains for full-materialization configs (scheme 2, variance)
     and as the equivalence oracle (tests/test_mixed_dynamic.py)."""
     if z_label is None:

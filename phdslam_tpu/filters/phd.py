@@ -1,4 +1,4 @@
-"""Rao-Blackwellized GM-PHD SLAM filter — the TPU-native core.
+"""Rao-Blackwellized GM-PHD SLAM filter — the core.
 
 Functional re-design of the reference filter engine
 (/root/reference/src/phdfilter.cu): one pure, jit-able ``step`` that runs
@@ -6,7 +6,7 @@ vehicle prediction, map prediction, the GM-PHD measurement update, state
 extraction and resampling on device-resident fixed-capacity state
 (SURVEY.md §7.1). The per-particle update is written as a single-particle
 function and vmapped over the particle axis (reference parallelism P1/P2/P3,
-SURVEY.md §2.4), which XLA fuses into large batched VPU ops.
+SURVEY.md §2.4), which XLA fuses into large batched ops.
 
 Reference call-stack parity (SURVEY.md §3.3 ``phdUpdateSynth``):
   concat maps            -> fixed-capacity [P, K] arrays (no concat needed)
@@ -30,7 +30,9 @@ import jax.numpy as jnp
 from ..config import SlamConfig
 from ..models import feature_motion, measurement, vehicle
 from ..ops import ekf
-from ..ops.gm_merge import compact_candidates, merge_dispatch
+from ..ops.gather import take_cols
+from ..ops.gm_merge import (compact_candidates, gm_merge, switch_widths,
+                             width_switch)
 from ..ops.math import LOG0, logsumexp, safe_log
 from ..ops.resample import effective_sample_ratio, systematic_ancestors
 from ..types import FilterState, GMState
@@ -97,27 +99,13 @@ def predict(state: FilterState, control, dt, cfg: SlamConfig,
 # ----------------------------------------------------------------------------
 
 def _update_single_pre(pose, mean, cov, weight, z, z_mask,
-                       cfg: SlamConfig, key=None, force_full=False,
-                       det=None, cons=None):
+                       cfg: SlamConfig, key=None, force_full=False):
     """Pre-merge half of the single-particle GM-PHD update
     (phdUpdateKernel, phdfilter.cu:2083-2321): in-range partition, EKF
     pre-update, normalizers, weights and the compacted merge-candidate set.
 
     Returns a dict consumed by :func:`_update_single_post` (the merge runs
     between the halves so the batched path can hoist it out of vmap).
-
-    ``det`` optionally carries this particle's pre-computed fused
-    detection+top-T results (vals_d [M, T], idx_d [M, T], norm [M],
-    count_d [M]) from ops.pallas_detect.detection_topT_batch — hoisted to
-    batch level by _batched_update like the merge; when given, the [M, K]
-    detection grid is never formed here.
-
-    ``cons`` [10, K] optionally carries the kernel's same-source
-    pre-consolidation sums (member detection copies collapsed per feature
-    column — see ops.pallas_detect._detect_kernel): the persistent lane k
-    then becomes the moment-matched cluster of {persistent copy (when
-    near the head), member detection copies}, carried through the gather
-    via 5 extra table rows (consolidated mean + upper-tri covariance).
     """
     K, D = mean.shape
     M = z.shape[0]
@@ -157,17 +145,6 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
                           jnp.exp(logw_part - log_norm[:, None]), 0.0)
         w_birth = jnp.where(
             z_mask, jnp.exp(safe_log(cfg.birth_weight) - log_norm), 0.0)
-    elif det is not None:
-        # fused-kernel route: the [M, K] grid lived only in the detection
-        # kernel's VMEM; per-measurement normalizers and the top-T lanes
-        # arrive pre-computed
-        mean_det = None
-        log_like = None
-        pdw = None
-        norm = det[2]
-        log_norm = jnp.log(norm)
-        w_det = None
-        w_birth = jnp.where(z_mask, cfg.birth_weight / norm, 0.0)
     else:
         # linear-domain normalizer — the reference's own arithmetic
         # (phdUpdateKernel sums exp(w_partial) linearly, :2190-2223) at one
@@ -177,8 +154,8 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
         pdw = ekf.ekf_detection_linear(pre, weight, z)
         pdw = jnp.where(det_valid, pdw, 0.0)
         # materialize once: pdw feeds the normalizer, the top-T sweeps and
-        # the live-lane count; without the barrier XLA rematerializes the
-        # exp chain into each consumer (measured 2.5x slower)
+        # the live-lane count; without the barrier XLA may rematerialize
+        # the exp chain into each consumer
         pdw = jax.lax.optimization_barrier(pdw)
         norm = jnp.sum(pdw, axis=1) + cfg.clutter_density \
             + cfg.birth_weight                                  # [M]
@@ -212,12 +189,8 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
         cn_predict = jnp.sum(jnp.where(in_m, weight, 0.0))
         if w_det is not None:
             cn_det = jnp.sum(w_det)
-        elif pdw is not None:
-            cn_det = jnp.sum(jnp.sum(pdw, axis=1) / norm)
         else:
-            # det route: sum_k pdw = norm - clutter - birth by construction
-            cn_det = jnp.sum(
-                (norm - cfg.clutter_density - cfg.birth_weight) / norm)
+            cn_det = jnp.sum(jnp.sum(pdw, axis=1) / norm)
         cn_update = jnp.sum(w_nd) + cn_det + jnp.sum(w_birth)
         dlog_w = n_valid_z * cfg.clutter_density + cn_update - cn_predict \
             - cfg.clutter_rate
@@ -236,64 +209,12 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
         act_b = det_valid & (w_det >= min_fw)
     act_c = z_mask & (w_birth >= min_fw)
 
-    cons_rows = None
-    if cons is not None:
-        # same-source pre-consolidation: fold the kernel's member moment
-        # sums (about the column head's innovation coords c) plus the
-        # persistent copy into the persistent lane's candidate values.
-        Sw, Sdur, Sdub, Srr, Srb, Sbb, c_r, c_b, n_mem, pers_in = \
-            (cons[i] for i in range(10))
-        # must match the wp plane the kernel gated heads/membership on
-        # (w_a == w_nd on in-range lanes)
-        wp = jnp.where(in_m & (w_a >= min_fw), w_a, 0.0)
-        cons_on = n_mem > 0.5
-        wpin = jnp.where(pers_in > 0.5, wp, 0.0)
-        W = Sw + wpin
-        W_safe = jnp.maximum(W, 1e-30)
-        # mean: u-bar = (Sw c + S du) / W (persistent sits at u = 0)
-        ub_r = (Sw * c_r + Sdur) / W_safe
-        ub_b = (Sw * c_b + Sdub) / W_safe
-        g00, g01 = pre.gain[:, 0, 0], pre.gain[:, 0, 1]
-        g10, g11 = pre.gain[:, 1, 0], pre.gain[:, 1, 1]
-        mc_x = mean[:, 0] + g00 * ub_r + g01 * ub_b
-        mc_y = mean[:, 1] + g10 * ub_r + g11 * ub_b
-        # spread about u-bar, accumulated about c (head coords) so the
-        # quadratic terms stay O(min_sep) — no position-scale cancellation
-        sp_rr = (Srr + wpin * c_r * c_r) / W_safe
-        sp_rb = (Srb + wpin * c_r * c_b) / W_safe
-        sp_bb = (Sbb + wpin * c_b * c_b) / W_safe
-        dc_r = ub_r - c_r
-        dc_b = ub_b - c_b
-        sp_rr = sp_rr - dc_r * dc_r
-        sp_rb = sp_rb - dc_r * dc_b
-        sp_bb = sp_bb - dc_b * dc_b
-        cu00 = pre.cov_upd[:, 0, 0]
-        cu01 = pre.cov_upd[:, 0, 1]
-        cu11 = pre.cov_upd[:, 1, 1]
-        base00 = (Sw * cu00 + wpin * cov[:, 0, 0]) / W_safe
-        base01 = (Sw * cu01 + wpin * cov[:, 0, 1]) / W_safe
-        base11 = (Sw * cu11 + wpin * cov[:, 1, 1]) / W_safe
-        # + G spread G' (rows of G: (g00, g01), (g10, g11))
-        cc00 = base00 + g00 * g00 * sp_rr + 2.0 * g00 * g01 * sp_rb \
-            + g01 * g01 * sp_bb
-        cc01 = base01 + g00 * g10 * sp_rr \
-            + (g00 * g11 + g01 * g10) * sp_rb + g01 * g11 * sp_bb
-        cc11 = base11 + g10 * g10 * sp_rr + 2.0 * g10 * g11 * sp_rb \
-            + g11 * g11 * sp_bb
-        w_a = jnp.where(cons_on, W, w_a)
-        act_a = act_a | cons_on
-        cons_rows = (jnp.where(cons_on, mc_x, mean[:, 0]),
-                     jnp.where(cons_on, mc_y, mean[:, 1]),
-                     jnp.where(cons_on, cc00, cov[:, 0, 0]),
-                     jnp.where(cons_on, cc01, cov[:, 0, 1]),
-                     jnp.where(cons_on, cc11, cov[:, 1, 1]))
-
     # merge candidate set: lane layout [K persistent | M*K detections | M births]
     eye = jnp.eye(D, dtype=dtype)
     N = K + M * K + M
     if use_fast:
-        # FAST PATH: top-k over candidate *weights* only, then MXU one-hot
-        # row selection (ops.ekf.select_compact_candidates). Neither the
+        # FAST PATH: top-k over candidate *weights* only, then a row
+        # gather from small per-feature tables. Neither the
         # [N, D, D] candidate covariance (detection cov is shared per
         # feature, phdfilter.cu:1890-1894) nor the [M, K, D] mean grid is
         # ever materialized.
@@ -303,18 +224,10 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
             # stage 1: the heaviest T LIVE detection lanes per measurement,
             # on the UNNORMALIZED pdw grid — w_det >= min_fw <=> pdw >=
             # min_fw * norm, and norm is a per-measurement constant so pdw
-            # order == w_det order. Keep-the-heaviest matters: pure
-            # index-order drops at T=16 measured 0.82 m ATE vs 0.48 m.
-            # Either pre-computed by the fused Pallas detection kernel
-            # (det route) or via one payload sort (select_live_topT).
+            # order == w_det order; one payload sort (select_live_topT)
             from ..ops.gm_merge import select_live_topT, topcap_sort
-            if det is not None:
-                vals_d, idx_d, _, count_d = det
-                n_live_d = jnp.sum(count_d)
-                n_kept_d = jnp.sum(jnp.minimum(count_d, T))
-            else:
-                vals_d, idx_d, n_live_d, n_kept_d = select_live_topT(
-                    pdw, min_fw * norm, T)
+            vals_d, idx_d, n_live_d, n_kept_d = select_live_topT(
+                pdw, min_fw * norm, T)
             flat_d = K + jnp.arange(M, dtype=jnp.int32)[:, None] * K + idx_d
             w_sel = jnp.where(vals_d > 0, vals_d / norm[:, None], 0.0)
             act_sel = vals_d > 0
@@ -373,15 +286,12 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
                     m_valid=n_valid_z * jnp.any(in_m).astype(dtype))
             else:
                 s2 = None
-        # the row gather itself is DEFERRED: _batched_update runs it at
-        # batch level on the Pallas one-hot gather kernel (under XLA-only
-        # vmap the one-hot operand materializes at [P, cap, K] — 2.7 GB /
-        # 11.5 ms at P=10240); single-particle callers finish with the XLA
-        # fallback via _finish_candidates
+        # the row gather itself is DEFERRED to the caller
+        # (_finish_candidates / _finish_candidates_packed), so the batched
+        # path can narrow it to the live candidate prefix first
         k_eff, m_eff, is_p, is_d = ekf.candidate_gather_indices(
             idx, K, M, True)
-        t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov,
-                                          cons_rows=cons_rows)
+        t_k, t_m = ekf.candidate_tables_T(mean, cov, pre, z, b_mean, b_cov)
         gather = dict(k_eff=k_eff, m_eff=m_eff, is_p=is_p, is_d=is_d,
                       sel_act=sel_act, cand_w=cand_w, t_k=t_k, t_m=t_m)
         pre_out = dict(cand=None, gather=gather, dlog_w=dlog_w, out_m=out_m,
@@ -430,37 +340,23 @@ def _update_single_pre(pose, mean, cov, weight, z, z_mask,
     return pre_out
 
 
-def _finish_gather_planes(pre_out, D, batched=False, has_birth=True,
-                          cons_rows=False):
+def _finish_gather_planes(pre_out, D, has_birth=True):
     """Complete a deferred candidate gather (fast path) in PLANE form:
     fetch the selected table rows ([C, cap] transposed layout) and return
-    (mean_planes, cov_planes, cand_w, sel_act).
-
-    ``batched=True`` routes the row fetch through the Pallas transposed
-    one-hot gather kernel (ops/pallas_select.py); single-particle callers
-    use the XLA one-hot matmul fallback. ``cons_rows``: the tables carry
-    the 5 consolidated-persistent rows (same-source pre-consolidation).
-    """
+    (mean_planes, cov_planes, cand_w, sel_act)."""
     g = pre_out["gather"]
-    if batched:
-        from ..ops.pallas_select import onehot_cols_batch as rows
-    else:
-        from ..ops.pallas_select import onehot_cols_xla as rows
-    r_k = rows(g["k_eff"], g["t_k"])
-    r_m = rows(g["m_eff"], g["t_m"])
+    r_k = take_cols(g["k_eff"], g["t_k"])
+    r_m = take_cols(g["m_eff"], g["t_m"])
     mean_pl, cov_pl = ekf.combine_selected_planes(
-        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, has_birth,
-        cons_rows=cons_rows)
+        r_k, r_m, g["is_p"], g["is_d"], g["sel_act"], D, has_birth)
     return mean_pl, cov_pl, g["cand_w"], g["sel_act"]
 
 
-def _finish_candidates(pre_out, D, batched=False, has_birth=True):
+def _finish_candidates(pre_out, D, has_birth=True):
     """Array-form completion of a deferred gather: (cand_mean [..., cap, D],
-    cand_cov [..., cap, D, D], cand_w, cand_act). Prefer the packed route
-    (_finish_candidates_packed) at batch level — these [..., cap, D]-shaped
-    arrays pad 32-64x under TPU (8, 128) tiling."""
+    cand_cov [..., cap, D, D], cand_w, cand_act)."""
     mean_pl, cov_pl, cand_w, sel_act = _finish_gather_planes(
-        pre_out, D, batched, has_birth)
+        pre_out, D, has_birth)
     cand_mean = jnp.stack(mean_pl, axis=-1)
     full = [[None] * D for _ in range(D)]
     i = 0
@@ -472,29 +368,22 @@ def _finish_candidates(pre_out, D, batched=False, has_birth=True):
     return cand_mean, cand_cov, cand_w, sel_act
 
 
-def _finish_candidates_packed(pre_out, D, batched=True, has_birth=True,
-                              cons_rows=False):
+def _finish_candidates_packed(pre_out, D, has_birth=True):
     """Packed completion of a deferred gather: SoA planes [P, C, cap]
     (w, act, means, upper-triangle covs) ready for
     ops.gm_merge.merge_batch_dispatch_packed."""
     mean_pl, cov_pl, cand_w, sel_act = _finish_gather_planes(
-        pre_out, D, batched, has_birth, cons_rows=cons_rows)
+        pre_out, D, has_birth)
     planes = [cand_w, sel_act.astype(cand_w.dtype)] + mean_pl + cov_pl
     return jnp.stack(planes, axis=-2)
 
 
 def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
     """Batch-level post-merge half: re-attach out-of-range features and
-    compact to capacity with ONE [P, 2K] payload sort + the Pallas
-    transposed one-hot gather (ops/pallas_select.py).
-
-    Replaces the per-particle [K, 2K] one-hot matmuls of
-    :func:`_update_single_post` on the fast path: under vmap those
-    materialize a [P, K, 2K] one-hot operand (dot operands are never
-    fusion outputs — BENCH.md), measured 11.3 ms of the 58.6 ms dense
-    update at P=1024/K=1024; the Pallas gather keeps the one-hot in VMEM.
-    Scheme-2 reweighting and the same overflow accounting run on the
-    gathered planes. Returns (new_mean, new_cov, new_w, dlog_w, overflow).
+    compact to capacity with ONE [P, 2K] payload sort + a column gather
+    of the merged and original planes. Scheme-2 reweighting and the same
+    overflow accounting run on the gathered planes. Returns (new_mean,
+    new_cov, new_w, dlog_w, overflow).
     """
     P, K, D = mean.shape
     dtype = mean.dtype
@@ -521,9 +410,7 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
             [mg_cov[:, :w_sl, a, b], cov[:, :w_sl, a, b]], axis=1)
             for a in range(D) for b in range(a, D)]
         tab = jnp.stack(rows, axis=1)               # [P, C, 2*w_sl]
-        from ..ops.pallas_select import onehot_cols_batch
-        got = onehot_cols_batch(order, tab,
-                                interpret=cfg.pallas_merge == 2)
+        got = take_cols(order, tab)
         if n_out < K:
             nw = jnp.pad(nw, ((0, 0), (0, K - n_out)))
             got = jnp.pad(got, ((0, 0), (0, 0), (0, K - n_out)))
@@ -532,25 +419,15 @@ def _post_compact_batched(mg, pre, mean, cov, weight, cfg: SlamConfig):
 
     # post-width switching: merged clusters occupy an emission-order
     # prefix of mg and live map lanes a weight-sorted prefix, so the
-    # [P, 2K] sort + gather shrink to the live extent (measured 92 ms of
-    # the dense P=10240 step at full width)
-    pwidths = []
-    if D == 2 and K >= 256 and getattr(cfg, "feature_width_switch", 1):
-        for frac in (4, 2, 1.3333333):
-            w = -(-int(K // frac) // 128) * 128
-            if 0 < w < K and w not in pwidths:
-                pwidths.append(w)
-    pwidths.append(K)
-    if len(pwidths) > 1:
-        n_req = jnp.maximum(
-            jnp.max(n_merged),
-            jnp.max(jnp.sum((weight > 0).astype(jnp.int32), axis=1)))
-        sel_p = sum((n_req > w).astype(jnp.int32) for w in pwidths[:-1])
-        new_w, got, total_live = jax.lax.switch(
-            sel_p, [(lambda w: (lambda: compact_at(w)))(w)
-                    for w in pwidths])
-    else:
-        new_w, got, total_live = compact_at(K)
+    # [P, 2K] sort + gather shrink to the live extent
+    pwidths = [K]
+    if D == 2 and K >= 256 and cfg.feature_width_switch:
+        pwidths = switch_widths(K)
+    n_req = jnp.maximum(
+        jnp.max(n_merged),
+        jnp.max(jnp.sum((weight > 0).astype(jnp.int32), axis=1)))
+    new_w, got, total_live = width_switch(
+        n_req, pwidths, lambda w: (lambda: compact_at(w)))
 
     empty = new_w <= 0
     mean_pl = [jnp.where(empty, 0.0, got[:, i]) for i in range(D)]
@@ -599,19 +476,15 @@ def _update_single_post(mg, pre_out, mean, cov, weight, cfg: SlamConfig):
     # reference has no capacity, so surface overflow for diagnostics).
     # 2-operand payload sort instead of lax.top_k: TopK lowers to a
     # custom-call the SPMD partitioner cannot split along the (sharded)
-    # particle axis — it all-gathered the [P, K+cap] operand (1 MB/step on
-    # an 8-device mesh); variadic sort along the lane axis partitions
+    # particle axis, while a variadic sort along the lane axis partitions
     # trivially. Stable ascending sort on -w ties by index like top_k.
-    # Row moves ride the MXU as an exact one-hot matmul (see the fast-path
-    # note in _update_single_pre: TPU gathers of tiny rows serialize).
     n_all = all_w.shape[0]
     neg_s, order = jax.lax.sort(
         (-all_w, jnp.arange(n_all, dtype=jnp.int32)), num_keys=1)
     new_w = jnp.maximum(-neg_s[:K], 0.0)
     order = order[:K]
-    oh = (order[:, None] == jnp.arange(n_all)[None, :]).astype(dtype)
-    new_mean = oh @ all_mean
-    new_cov = (oh @ all_cov.reshape(n_all, D * D)).reshape(K, D, D)
+    new_mean = all_mean[order]
+    new_cov = all_cov[order]
     # restore identity covariance on empty slots
     empty = new_w <= 0
     new_cov = jnp.where(empty[:, None, None], jnp.eye(D, dtype=dtype), new_cov)
@@ -654,230 +527,78 @@ def _update_single(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                                  key)
     cand = (pre_out["cand"] if pre_out["gather"] is None
             else _finish_candidates(pre_out, mean.shape[1]))
-    mg = merge_dispatch(*cand, cfg, mean.shape[0])
+    mg = gm_merge(*cand, cfg.min_separation, mean.shape[0],
+                  cfg.distance_metric)
     return _update_single_post(mg, pre_out, mean, cov, weight, cfg)
 
 
-def _detection_planes_single(pose, mean, cov, weight, cfg: SlamConfig,
-                             consolidate=False):
-    """Input planes for the fused detection kernel (ops/pallas_detect.py):
-    r, bearing, si00, si01, si11, pref — pref pre-folds pd * w /
-    (2 pi sqrt det S) and the in-range mask exactly as
-    ekf.ekf_detection_linear + the det_valid gate do.
+_LANE_KEYS = ("k_eff", "m_eff", "is_p", "is_d", "sel_act", "cand_w")
 
-    With ``consolidate`` (same-source pre-consolidation), 7 extra rows:
-    wp (the gated persistent candidate weight — must match
-    _update_single_pre's act_a gate exactly), the copy-copy Mahalanobis
-    quadratic Q = G' cov_upd^-1 G and the copy-persistent quadratic
-    P = G' ((cov + cov_upd)/2)^-1 G, all in innovation coordinates (the
-    distance between two EKF copies of feature k is
-    (G Δu)' C^-1 (G Δu) = Δu' [G' C^-1 G] Δu)."""
-    cls = measurement.classify_in_range(pose, mean, weight, cfg)
-    in_m = cls == measurement.IN_RANGE
-    pre = ekf.ekf_preupdate(pose, mean, cov, cfg)
-    pref = jnp.where(
-        in_m,
-        pre.pd * weight / (2.0 * jnp.pi
-                           * jnp.sqrt(jnp.maximum(pre.det_S, 1e-30))),
-        0.0)
-    rows = [pre.r, pre.bearing, pre.si00, pre.si01, pre.si11, pref]
-    if consolidate:
-        w_nd = weight * (1.0 - pre.pd)
-        wp = jnp.where(in_m & (w_nd >= cfg.min_feature_weight), w_nd, 0.0)
-        g00, g01 = pre.gain[:, 0, 0], pre.gain[:, 0, 1]
-        g10, g11 = pre.gain[:, 1, 0], pre.gain[:, 1, 1]
 
-        def quad(c00, c01, c11):
-            det = jnp.maximum(c00 * c11 - c01 * c01, 1e-30)
-            i00, i01, i11 = c11 / det, -c01 / det, c00 / det
-            # G' Cinv G with G columns (g00, g10), (g01, g11)
-            q00 = g00 * g00 * i00 + 2.0 * g00 * g10 * i01 \
-                + g10 * g10 * i11
-            q01 = g00 * g01 * i00 + (g00 * g11 + g01 * g10) * i01 \
-                + g10 * g11 * i11
-            q11 = g01 * g01 * i00 + 2.0 * g01 * g11 * i01 \
-                + g11 * g11 * i11
-            return q00, q01, q11
-
-        cu00 = pre.cov_upd[:, 0, 0]
-        cu01 = pre.cov_upd[:, 0, 1]
-        cu11 = pre.cov_upd[:, 1, 1]
-        rows += [wp]
-        rows += list(quad(cu00, cu01, cu11))
-        rows += list(quad(0.5 * (cov[:, 0, 0] + cu00),
-                          0.5 * (cov[:, 0, 1] + cu01),
-                          0.5 * (cov[:, 1, 1] + cu11)))
-    return jnp.stack(rows, axis=0)
+def _gather_prefix(gather, w):
+    """A deferred-gather dict narrowed to its first ``w`` candidate lanes
+    (the per-feature source tables stay whole)."""
+    return {k: (v[:, :w] if k in _LANE_KEYS else v)
+            for k, v in gather.items()}
 
 
 def gather_merge_width_switched(gather, D, cfg, out_cap, has_birth=True,
                                 sorted_prefix=True):
     """Candidate-width-switched gather + combine + merge on a deferred-
-    gather dict (the reusable form of _pre_merge_phase's cwidths switch,
-    shared by the CPHD and mixed pipelines): live candidates occupy the
-    stage-2 weight-sorted prefix, so everything downstream of stage 2 can
-    run on the [:, :cap'] slice, lax.switched on the batch's max live
-    candidate count — exact (sliced lanes are all inactive)."""
-    from ..ops.gm_merge import WIDTH_FRACS, merge_batch_dispatch_packed
-
-    def gm_at(g):
-        packed = _finish_candidates_packed(
-            {"gather": g}, D, batched=True, has_birth=has_birth)
-        return merge_batch_dispatch_packed(packed, D, cfg, out_cap,
-                                           sorted_prefix=sorted_prefix)
-
-    cap = gather["cand_w"].shape[-1]
-    cwidths = []
-    if sorted_prefix and cap >= 256 \
-            and getattr(cfg, "feature_width_switch", 1):
-        for frac in WIDTH_FRACS:
-            w = -(-int(cap // frac) // 128) * 128
-            if 0 < w < cap and w not in cwidths:
-                cwidths.append(w)
-    cwidths.append(cap)
-    if len(cwidths) == 1:
-        return gm_at(gather)
-    n_live_c = jnp.max(jnp.sum(
-        (gather["sel_act"] & (gather["cand_w"] > 0)).astype(jnp.int32),
-        axis=1))
-    sel_c = sum((n_live_c > w).astype(jnp.int32) for w in cwidths[:-1])
-    lane_keys = ("k_eff", "m_eff", "is_p", "is_d", "sel_act", "cand_w")
+    gather dict (shared by the PHD, CPHD and mixed pipelines): live
+    candidates occupy the stage-2 weight-sorted prefix, so everything
+    downstream of stage 2 can run on the [:, :cap'] slice, lax.switched on
+    the batch's max live candidate count — exact (sliced lanes are all
+    inactive)."""
+    from ..ops.gm_merge import merge_batch_dispatch_packed
 
     def make_branch(w):
         def branch(g):
-            return gm_at({k: (v[:, :w] if k in lane_keys else v)
-                          for k, v in g.items()})
+            packed = _finish_candidates_packed(
+                {"gather": _gather_prefix(g, w)}, D, has_birth=has_birth)
+            return merge_batch_dispatch_packed(packed, D, cfg, out_cap,
+                                               sorted_prefix=sorted_prefix)
         return branch
 
-    return jax.lax.switch(sel_c, [make_branch(w) for w in cwidths],
-                          gather)
+    cap = gather["cand_w"].shape[-1]
+    cwidths = [cap]
+    if sorted_prefix and cap >= 256 and cfg.feature_width_switch:
+        cwidths = switch_widths(cap)
+    n_live_c = jnp.max(jnp.sum(
+        (gather["sel_act"] & (gather["cand_w"] > 0)).astype(jnp.int32),
+        axis=1))
+    return width_switch(n_live_c, cwidths, make_branch, gather)
 
 
 def _pre_merge_phase(pose, mean, cov, weight, z, z_mask,
                      cfg: SlamConfig, out_cap, keys=None):
-    """Fast-path detection + per-particle pre + batch merge at the GIVEN
-    feature width (mean [P, K', D] may be a live-prefix slice of the map —
-    see :func:`_batched_update`'s feature-width switching). Returns
+    """Fast-path per-particle pre half + batch gather and merge at the
+    GIVEN feature width (mean [P, K', D] may be a live-prefix slice of the
+    map — see :func:`_batched_update`'s feature-width switching). Returns
     (mg, bits, variance) where ``bits`` carries the width-independent
     post-half inputs (out_m padded by the caller, dlog_w, n_compact, s2).
     """
     K = mean.shape[-2]
     D = mean.shape[-1]
     M = z.shape[0]
-    T = cfg.detection_topk
     cap = cfg.merge_candidate_cap
     with_var = cfg.compute_variance and keys is not None
 
-    det = None
-    cons = None
-    # same-source pre-consolidation rides the fused detection kernel
-    # (design + measurement in BENCH.md: the XLA segmented-scan form cost
-    # more than the merge saved); scheme 2 needs the full top-T set for
-    # its argmax search, so it keeps the plain kernel
-    consolidate = bool(getattr(cfg, "premerge_consolidate", 0)) \
-        and D == 2 and cfg.particle_weighting != 2 \
-        and cfg.distance_metric == 0
-    if 0 < T < K and cfg.pallas_detect:
-        from ..ops.pallas_detect import detection_topT_batch
-        from ..ops.pallas_merge import pallas_available
-        interp = cfg.pallas_detect == 2
-        if interp or pallas_available():
-            planes = jax.vmap(lambda p, m, c, w: _detection_planes_single(
-                p, m, c, w, cfg, consolidate=consolidate))(
-                pose, mean, cov, weight)
-            z4 = jnp.stack([z[:, 0], z[:, 1], z_mask.astype(z.dtype),
-                            jnp.zeros_like(z[:, 0])], axis=1)
-            res = detection_topT_batch(
-                planes, z4, T, float(cfg.min_feature_weight),
-                float(cfg.clutter_density + cfg.birth_weight),
-                interpret=interp,
-                min_sep=float(cfg.min_separation) if consolidate else 0.0,
-                adaptive=bool(getattr(cfg, "detect_adaptive", 0)))
-            if consolidate:
-                det, cons = res[:4], res[4]
-            else:
-                det = res
-    consolidate = consolidate and cons is not None
-
-    if cons is not None:
-        pre = jax.vmap(
-            lambda p, m, c, w, dv, di, dn, dc, cns: _update_single_pre(
-                p, m, c, w, z, z_mask, cfg, det=(dv, di, dn, dc),
-                cons=cns))(pose, mean, cov, weight, *det, cons)
-    elif det is not None:
-        pre = jax.vmap(lambda p, m, c, w, dv, di, dn, dc: _update_single_pre(
-            p, m, c, w, z, z_mask, cfg, det=(dv, di, dn, dc)))(
-            pose, mean, cov, weight, *det)
-    else:
-        pre = jax.vmap(lambda p, m, c, w: _update_single_pre(
-            p, m, c, w, z, z_mask, cfg))(pose, mean, cov, weight)
-
-    from ..ops.gm_merge import merge_batch_dispatch_packed
+    pre = jax.vmap(lambda p, m, c, w: _update_single_pre(
+        p, m, c, w, z, z_mask, cfg))(pose, mean, cov, weight)
     # prefix-sortedness holds only when a compaction actually ran: with
     # cap >= the full lane count, compact_candidates returns the ORIGINAL
     # (unsorted) lane layout
     sorted_prefix = 0 < cap < (K + M * K + M)
-    # deferred gather: batch-level Pallas one-hot row fetch (inside the
-    # vmap the kernel would degenerate to one particle per program), kept
-    # in packed SoA planes end-to-end — [P, cap, D]-shaped intermediates
-    # pad 32-64x under (8, 128) tiling
-
-    def gather_and_merge(g, cons_rows):
-        """One gather+combine+merge at g's lane width (the merge's own
-        width dispatch is bypassed — the caller already sliced)."""
-        pre_g = dict(pre)
-        pre_g["gather"] = g
-        mg_ = None
-        if D == 2 and not with_var and not cons_rows:
-            from ..ops.gm_merge import merge_batch_dispatch_tables
-            mg_ = merge_batch_dispatch_tables(
-                g, cfg, out_cap, sorted_prefix=sorted_prefix)
-        packed_ = None
-        if mg_ is None:
-            packed_ = _finish_candidates_packed(
-                pre_g, D, batched=True, cons_rows=cons_rows)
-            mg_ = merge_batch_dispatch_packed(
-                packed_, D, cfg, out_cap, sorted_prefix=sorted_prefix)
-        return mg_, packed_
-
-    # candidate-width switching: stage-2 top-cap compaction leaves live
-    # candidates in a weight-sorted prefix, so the GATHER + combine +
-    # merge can run on the [:, :cap'] slice, lax.switched on the batch's
-    # max live candidate count — the measured dense-P=10240 profile put
-    # the full-cap gather at 73 ms and the merge at 105 ms while only
-    # ~300 of 1536 lanes were live
-    g_full = pre["gather"]   # the fast path always defers its gather
-    cwidths = []
-    if sorted_prefix and not with_var and cap >= 256 \
-            and getattr(cfg, "feature_width_switch", 1):
-        from ..ops.gm_merge import WIDTH_FRACS
-        for frac in WIDTH_FRACS:
-            w = -(-int(cap // frac) // 128) * 128
-            if 0 < w < cap and w not in cwidths:
-                cwidths.append(w)
-    cwidths.append(cap)
-
     variance = None
-    if len(cwidths) > 1:
-        n_live_c = jnp.max(jnp.sum(
-            (g_full["sel_act"] & (g_full["cand_w"] > 0)).astype(jnp.int32),
-            axis=1))
-        sel_c = sum((n_live_c > w).astype(jnp.int32) for w in cwidths[:-1])
-        lane_keys = ("k_eff", "m_eff", "is_p", "is_d", "sel_act", "cand_w")
-
-        def make_cbranch(w):
-            def branch(g):
-                g_w = {k: (v[:, :w] if k in lane_keys else v)
-                       for k, v in g.items()}
-                mg_, _ = gather_and_merge(g_w, consolidate)
-                return mg_
-            return branch
-
-        mg = jax.lax.switch(sel_c, [make_cbranch(w) for w in cwidths],
-                            g_full)
+    if not with_var:
+        mg = gather_merge_width_switched(pre["gather"], D, cfg, out_cap,
+                                         sorted_prefix=sorted_prefix)
     else:
-        mg, packed = gather_and_merge(g_full, consolidate)
-    if with_var:
+        from ..ops.gm_merge import merge_batch_dispatch_packed
+        packed = _finish_candidates_packed(pre, D)
+        mg = merge_batch_dispatch_packed(packed, D, cfg, out_cap,
+                                         sorted_prefix=sorted_prefix)
         # fast-path MC variance over the SELECTED lanes (the reference
         # runs phdVarianceKernel on the full pre-merge candidate array,
         # :3585-3597). The tail this misses is usually sub-threshold
@@ -899,13 +620,8 @@ def _pre_merge_phase(pose, mean, cov, weight, z, z_mask,
 
 def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                     keys=None):
-    """All-particle update with the merge, the candidate gather and the
-    fused detection+top-T kernel hoisted OUT of the vmap.
-
-    Calling a Pallas kernel inside vmap degenerates to one particle per
-    program (its particle-block never engages, measured 5x slower for the
-    merge); here the vmapped pre/post halves wrap batch-level kernel
-    calls.
+    """All-particle update with the merge and the candidate gather hoisted
+    OUT of the vmap, so the merge sees the whole batch at once.
 
     Feature-width switching: the map's live lanes always occupy a
     weight-sorted prefix (the post-half compaction sorts, prediction
@@ -945,18 +661,14 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                 mg_t, pre_t, m, c, w, cfg)
         )(mg, pre, mean, cov, weight)
 
-    widths = []
-    if D == 2 and not with_var and K >= 256 \
-            and getattr(cfg, "feature_width_switch", 1):
-        for frac in (4, 2, 1.3333333):
-            w = -(-int(K // frac) // 128) * 128     # ceil to lane tile
-            if cfg.detection_topk < w < K and w not in widths:
-                widths.append(w)
-    widths.append(K)
-
-    if len(widths) > 1:
-        n_live = jnp.max(jnp.sum((weight > 0).astype(jnp.int32), axis=1))
-        sel = sum((n_live > w).astype(jnp.int32) for w in widths[:-1])
+    if with_var:
+        mg, bits, variance = _pre_merge_phase(
+            pose, mean, cov, weight, z, z_mask, cfg, out_cap=K, keys=keys)
+    else:
+        widths = [K]
+        if D == 2 and K >= 256 and cfg.feature_width_switch:
+            widths = [w for w in switch_widths(K)
+                      if w > cfg.detection_topk]
 
         def make_branch(w):
             def branch(p_, m_, c_, w_):
@@ -969,17 +681,11 @@ def _batched_update(pose, mean, cov, weight, z, z_mask, cfg: SlamConfig,
                 return mg_, bits_
             return branch
 
-        mg, bits = jax.lax.switch(sel, [make_branch(w) for w in widths],
-                                  pose, mean, cov, weight)
-        variance = None
-    else:
-        mg, bits, variance = _pre_merge_phase(
-            pose, mean, cov, weight, z, z_mask, cfg, out_cap=K, keys=keys)
+        n_live = jnp.max(jnp.sum((weight > 0).astype(jnp.int32), axis=1))
+        mg, bits = width_switch(n_live, widths, make_branch,
+                                pose, mean, cov, weight)
 
-    # batch-level post half at FULL width: one payload sort + Pallas
-    # one-hot gather (the per-particle [K, 2K] one-hot matmul route
-    # materializes its dot operand at [P, K, 2K] — 11.3 ms of the dense
-    # update at P=1024)
+    # batch-level post half at FULL width: one payload sort + gather
     out = _post_compact_batched(mg, bits, mean, cov, weight, cfg)
     if with_var:
         return out + (variance,)
@@ -1046,11 +752,7 @@ def extract(state: FilterState, cfg: SlamConfig):
         def _map(st):
             g = (st.map_dynamic if cfg.feature_model == 1
                  else st.map_static)
-            oh_ = (jnp.arange(st.log_weight.shape[0])
-                   == jnp.argmax(st.log_weight)).astype(g.mean.dtype)
-            return (jnp.einsum("p,pkd->kd", oh_, g.mean),
-                    jnp.einsum("p,pkab->kab", oh_, g.cov),
-                    jnp.einsum("p,pk->k", oh_, g.weight))
+            return _map_particle(g, st.log_weight)
 
         if cfg.eap_every > 1:
             mean, cov, weight = jax.lax.cond(
@@ -1058,18 +760,15 @@ def extract(state: FilterState, cfg: SlamConfig):
         else:
             mean, cov, weight = _eap(state)
         return expected_pose, (mean, cov, weight)
-    # MAP map = argmax-weight particle's map (mapEstimate bit 0, :344-361).
-    # One-hot contraction over the particle axis instead of a dynamic-index
-    # gather: under SPMD a gather all-gathers the FULL [P,K,D,D] map state
-    # (4.7 MB/step measured on an 8-device mesh) while the contraction
-    # psums one [K,D,D] map (~3 KB); single-chip it avoids a gather too.
-    max_idx = jnp.argmax(state.log_weight)
-    oh = (jnp.arange(state.log_weight.shape[0]) == max_idx).astype(
-        gm.mean.dtype)
-    mm = jnp.einsum("p,pkd->kd", oh, gm.mean)
-    mc = jnp.einsum("p,pkab->kab", oh, gm.cov)
-    mw = jnp.einsum("p,pk->k", oh, gm.weight)
-    return expected_pose, (mm, mc, mw)
+    # MAP map = argmax-weight particle's map (mapEstimate bit 0, :344-361)
+    return expected_pose, _map_particle(gm, state.log_weight)
+
+
+def _map_particle(gm: GMState, log_weight):
+    """(mean, cov, weight) of the highest-weight particle's map."""
+    i = jnp.argmax(log_weight)
+    return (jnp.take(gm.mean, i, axis=0), jnp.take(gm.cov, i, axis=0),
+            jnp.take(gm.weight, i, axis=0))
 
 
 def _gather_particles(state: FilterState, idx) -> FilterState:
@@ -1100,9 +799,9 @@ def maybe_resample(state: FilterState, has_measurements, cfg: SlamConfig,
     identity = jnp.arange(P, dtype=jnp.int32)
 
     # the gather only runs on resample steps: under jit+NamedSharding the
-    # cross-particle gather lowers to an all-gather of the ENTIRE map state
-    # (measured 15.8 MB/step on an 8-device mesh), and even single-chip it
-    # is ~1 ms of HBM traffic — lax.cond skips it when nEff is healthy.
+    # cross-particle gather lowers to an all-gather of the ENTIRE map state,
+    # and even on one card it moves the whole map state through device
+    # memory — lax.cond skips it when nEff is healthy.
     # On a particle mesh the gather itself routes through the neighbor
     # migration (parallel/migrate.py): bytes ∝ migrated rows, not map size.
     def _do(st):
@@ -1208,12 +907,10 @@ def phd_step(state: FilterState, z, z_mask, control, dt, do_predict,
     state = state.replace(step=state.step + 1)
 
     # cn_estimate = MAP particle's cardinality (recoverSlamState,
-    # main.cpp:344-361) — one-hot contraction for the same reason as the
-    # MAP-map extraction in :func:`extract`
+    # main.cpp:344-361)
     if state.cardinality is not None:
-        ohc = (jnp.arange(state.log_weight.shape[0])
-               == jnp.argmax(state.log_weight)).astype(state.pose.dtype)
-        cn = jnp.einsum("p,pc->c", ohc, state.cardinality)
+        cn = jnp.take(state.cardinality, jnp.argmax(state.log_weight),
+                      axis=0)
     else:
         cn = jnp.zeros((1,), state.pose.dtype)
     out = StepOutputs(expected_pose=expected_pose, map_mean=mm, map_cov=mc,

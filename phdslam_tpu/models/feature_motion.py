@@ -1,6 +1,6 @@
 """Feature (landmark/target) motion models.
 
-TPU-native equivalents of the GM feature motion models in
+Equivalents of the GM feature motion models in
 /root/reference/src/device_math.cuh:608-683 and the map-prediction kernels in
 /root/reference/src/phdfilter.cu:891-963 (static, dynamic and jump-Markov
 mixed prediction).

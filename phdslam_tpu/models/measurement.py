@@ -1,6 +1,6 @@
 """Range-bearing measurement model.
 
-TPU-native equivalent of the measurement-side device code in
+Equivalent of the measurement-side device code in
 /root/reference/src/phdfilter.cu: predicted measurements + Jacobians
 (:301-341), FOV probability of detection (:315-317), in-range classification
 (computeInRangeKernel :1279-1358) and the inverse (birth) model (:205-242).

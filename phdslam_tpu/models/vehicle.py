@@ -1,6 +1,6 @@
 """Vehicle motion models.
 
-TPU-native equivalents of the reference prediction kernels
+Equivalents of the reference prediction kernels
 (/root/reference/src/phdfilter.cu:785-859): constant-velocity planar motion and
 the Ackerman-steering bicycle model with encoder/steering noise and sensor
 offset. Batched over the particle axis; noise drawn from ``jax.random``

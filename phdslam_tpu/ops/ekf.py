@@ -1,6 +1,6 @@
 """Batched EKF pre-update for range-bearing measurements.
 
-TPU-native equivalent of the reference's per-(feature x measurement) EKF
+Equivalent of the reference's per-(feature x measurement) EKF
 pre-update kernels: ``preUpdateSynthKernel`` 2D (phdfilter.cu:1824-1925) and 4D
 (:1927-2058), and the inline ``computePreUpdate`` 2D/4D (:301-521).
 
@@ -32,7 +32,7 @@ class PreUpdate(NamedTuple):
     """Per-feature EKF quantities (batched over K).
 
     2x2 quantities are carried BOTH as component planes (``s00``..``si11``,
-    fast TPU layout — elementwise [K] vectors) and as assembled arrays
+    elementwise [K] vectors) and as assembled arrays
     (``S``/``S_inv``, kept for oracle tests and generic consumers; XLA
     dead-code-eliminates whichever form a caller doesn't touch).
     """
@@ -54,10 +54,9 @@ def ekf_preupdate(pose, mean, cov, cfg) -> PreUpdate:
 
     Everything runs as closed-form scalar arithmetic on [K] component
     planes, mirroring the reference's Maple-generated kernels
-    (phdfilter.cu:335-364): XLA lowers batched tiny-matrix ``dot_general``s
-    to dilated convolutions on TPU (~1.7M cycles each at P=512, K=128 —
-    measured), and minor-dim transposes/slices of [K, 2, 2] tiles force
-    relayouts, so neither appears here. The Joseph-form covariance is built
+    (phdfilter.cu:335-364): elementwise planes fuse into one pass, where
+    batched tiny-matrix ``dot_general``s and minor-dim transposes of
+    [K, 2, 2] tiles would not. The Joseph-form covariance is built
     from symmetric terms (P - EP - (EP)^T + E P E^T + K R K^T with
     E = gain . H), which makes it symmetric by construction — no separate
     symmetrization pass.
@@ -235,8 +234,7 @@ def candidate_tables(mean, cov, pre: PreUpdate, z, b_mean=None, b_cov=None):
 
     t_k [K, D + 2*D^2 + 2*D + 2]: mean | cov | cov_upd | gain | r | bearing.
     t_m [M, 2 (+ D + D^2)]: z | birth mean | birth cov (when births are in
-    the lane layout). Row gathers from these run at batch level
-    (ops.pallas_select.onehot_rows_batch) so the Pallas kernel engages.
+    the lane layout), read with ops.gather.take_rows.
     """
     K, D = mean.shape
     M = z.shape[0]
@@ -299,16 +297,14 @@ def combine_selected(r_k, r_m, is_p, is_d, sel_act, D, has_birth):
 
 
 def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
-                       b_cov=None, cons_rows=None):
+                       b_cov=None):
     """Transposed gather tables: t_k [Ck, K], t_m [Cm, M].
 
     Row order matches :func:`candidate_tables`'s column order (mean | cov
     row-major | cov_upd | gain row-major | r | bearing, and z | birth mean
     | birth cov). The transposed form keeps the feature axis MINOR so the
-    gathered rows come back as [C, cap] planes: a [cap, C~17] result under
-    TPU (8, 128) tiling pads its minor dim 17 -> 128 (7.5x HBM expansion,
-    part of a measured 17.7 GB temp blowup at P=10240), while [C, cap]
-    pads only 17 -> 24 sublanes.
+    gathered rows (ops.gather.take_cols) come back as [C, cap] planes, the
+    layout the packed merge consumes.
     """
     K, D = mean.shape
     rows_k = [mean[:, i] for i in range(D)]
@@ -316,11 +312,6 @@ def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
     rows_k += [pre.cov_upd[:, a, b] for a in range(D) for b in range(D)]
     rows_k += [pre.gain[:, i, j] for i in range(D) for j in range(2)]
     rows_k += [pre.r, pre.bearing]
-    if cons_rows is not None:
-        # same-source pre-consolidation: 5 extra rows (consolidated mean
-        # x/y + upper-tri covariance) consumed by combine_selected_planes
-        # for is_p lanes instead of the raw mean/cov rows
-        rows_k += list(cons_rows)
     t_k = jnp.stack(rows_k, axis=0)
     rows_m = [z[:, 0], z[:, 1]]
     if b_mean is not None:
@@ -330,23 +321,19 @@ def candidate_tables_T(mean, cov, pre: PreUpdate, z, b_mean=None,
     return t_k, t_m
 
 
-def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth,
-                            cons_rows=False):
+def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth):
     """Plane-form candidate assembly from TRANSPOSED gathered rows.
 
     r_k [..., Ck, cap], r_m [..., Cm, cap] (from candidate_tables_T +
-    ops.pallas_select.onehot_cols_batch); masks [..., cap]. Returns
-    (mean_planes: D arrays [..., cap], cov_planes: D*(D+1)/2 arrays
-    [..., cap] in row-major upper-triangle order) — every intermediate is
-    a [..., cap] plane, so nothing hits the 64-128x padding of
-    [..., cap, D]-shaped temps under (8, 128) tiling.
+    ops.gather.take_cols); masks [..., cap]. Returns (mean_planes: D
+    arrays [..., cap], cov_planes: D*(D+1)/2 arrays [..., cap] in
+    row-major upper-triangle order).
     """
     o_cov = D
     o_cov_upd = D + D * D
     o_gain = D + 2 * D * D
     o_r = D + 2 * D * D + 2 * D
     o_bear = o_r + 1
-    o_cons = o_bear + 1     # 5 rows: mean x/y, c00, c01, c11 (cons_rows)
 
     take_k = lambda c: r_k[..., c, :]
     take_m = lambda c: r_m[..., c, :]
@@ -356,8 +343,8 @@ def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth,
 
     mean_planes = []
     for i in range(D):
-        mean_k = take_k(o_cons + i) if cons_rows else take_k(i)
-        mean_d = take_k(i) + take_k(o_gain + 2 * i) * innov_r \
+        mean_k = take_k(i)
+        mean_d = mean_k + take_k(o_gain + 2 * i) * innov_r \
             + take_k(o_gain + 2 * i + 1) * innov_b
         if has_birth:
             mp = jnp.where(is_p, mean_k,
@@ -367,14 +354,9 @@ def combine_selected_planes(r_k, r_m, is_p, is_d, sel_act, D, has_birth,
         mean_planes.append(jnp.where(sel_act, mp, 0.0))
 
     cov_planes = []
-    tri = 0
     for a in range(D):
         for b in range(a, D):
-            if cons_rows:
-                ck = take_k(o_cons + D + tri)
-            else:
-                ck = take_k(o_cov + a * D + b)
-            tri += 1
+            ck = take_k(o_cov + a * D + b)
             cu = take_k(o_cov_upd + a * D + b)
             if has_birth:
                 cb_ = take_m(2 + D + a * D + b)
@@ -396,27 +378,19 @@ def select_compact_candidates(idx, sel_act, mean, cov, pre: PreUpdate, z,
     (ops.gm_merge.topk_compact_indices). Returns (cand_mean [cap, D],
     cand_cov [cap, D, D]) with empty lanes sanitized to (0, I).
 
-    Row selection runs as one-hot matmuls: TPU gathers of tiny rows
-    serialize (measured ~13-16 ms per 512x512-row gather set at P=512),
-    while a [cap, K] x [K, cols] one-hot product rides the MXU and — under
-    the package-wide f32 "highest" matmul precision — is an exact row copy.
     All sources are small per-particle tables (K persistent rows, M
     measurement rows), and detection means are computed post-selection for
     the surviving lanes only, so neither the [M, K, D] mean grid nor any
-    [N, D, D] candidate covariance ever hits HBM. Inside a vmap, prefer
-    the batch-level route (candidate_tables + onehot_rows_batch +
-    combine_selected — see filters/phd.py::_batched_update): under XLA the
-    one-hot operand itself must materialize ([P, cap, K] = 2.7 GB at
-    P=10240, measured 11.5 ms); the Pallas gather kernel keeps it in VMEM.
+    [N, D, D] candidate covariance is materialized.
     """
     K, D = mean.shape
     M = z.shape[0]
     has_birth = b_mean is not None
     k_eff, m_eff, is_p, is_d = candidate_gather_indices(idx, K, M, has_birth)
     t_k, t_m = candidate_tables(mean, cov, pre, z, b_mean, b_cov)
-    from .pallas_select import onehot_rows_xla
-    r_k = onehot_rows_xla(k_eff, t_k)
-    r_m = onehot_rows_xla(m_eff, t_m)
+    from .gather import take_rows
+    r_k = take_rows(k_eff, t_k)
+    r_m = take_rows(m_eff, t_m)
     return combine_selected(r_k, r_m, is_p, is_d, sel_act, D, has_birth)
 
 

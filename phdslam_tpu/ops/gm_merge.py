@@ -1,6 +1,6 @@
 """Greedy moment-matched Gaussian-mixture merge under jit.
 
-TPU-native equivalent of ``phdUpdateMergeKernel`` (phdfilter.cu:2707-2898) and
+The plain reference for ``phdUpdateMergeKernel`` (phdfilter.cu:2707-2898) and
 the host-side ``reduceGaussianMixture`` (gm_reduce.cpp:57-134). Both reference
 implementations run the same algorithm:
 
@@ -16,18 +16,15 @@ The reference's data-dependent ``while(true)`` becomes a bounded
 ``lax.while_loop`` (at most ``out_cap`` emitted clusters), with candidate
 validity expressed as masks instead of stream compaction — no dynamic shapes
 ever reach XLA. The per-iteration work (argmax + N distance evaluations +
-masked moment accumulation) is fully vectorized on the VPU, and the whole
-operation vmaps over the particle axis.
+masked moment accumulation) is vectorized over the lanes, and the whole
+operation vmaps over the particle axis. ops/pallas_merge.py runs the same
+loop as one GPU kernel; :func:`merge_batch_dispatch_packed` chooses.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-
-# width-switch fractions for the sorted-prefix merge dispatch
-# (quarter steps; module-level so benchmarks can A/B them)
-WIDTH_FRACS = (4, 2, 1.3333333)
 
 from .math import hellinger2, mahalanobis2, sym
 
@@ -56,10 +53,9 @@ def gm_merge(mean, cov, weight, active, min_separation, out_cap,
     active = active & (weight > 0)
 
     # Force materialization of the candidate arrays before the loop: without
-    # this barrier XLA fuses/rematerializes their (expensive) producer chain
-    # — the whole EKF pre-update — into every while_loop iteration, which
-    # measured ~1000x slower on TPU (see BENCH notes; loop-invariant inputs
-    # must be loop constants, not fused recomputations).
+    # this barrier XLA may fuse their (expensive) producer chain — the whole
+    # EKF pre-update — into every while_loop iteration (loop-invariant
+    # inputs must be loop constants, not fused recomputations).
     mean, cov, weight, active = jax.lax.optimization_barrier(
         (mean, cov, weight, active))
 
@@ -118,108 +114,69 @@ def gm_merge_batch(mean, cov, weight, active, min_separation, out_cap,
     return jax.vmap(fn)(mean, cov, weight, active)
 
 
-def merge_dispatch(mean, cov, weight, active, cfg, out_cap):
-    """Route a single-particle merge to the Pallas kernel when eligible
-    (2D features, Mahalanobis metric, TPU backend — cfg.pallas_merge),
-    otherwise to the XLA while_loop implementation."""
-    D = mean.shape[-1]
-    metric = cfg.distance_metric
-    eligible = metric == 0 and D in (2, 3, 4) or (metric == 1 and D == 2)
-    if cfg.pallas_merge and eligible:
-        import functools as _ft
+def merge_route(cfg):
+    """Which merge implementation ``cfg.pallas_merge`` selects here:
+    ``"kernel"`` (the Pallas kernel compiled for a CUDA GPU), ``"interpret"``
+    (the same kernel in interpret mode, for CPU tests) or ``"xla"`` (the
+    while_loop reference). 0 = XLA, 1 = the kernel on a GPU and XLA
+    elsewhere, 2 = interpret."""
+    from .pallas_merge import kernel_platform_ok
+    if cfg.pallas_merge == 2:
+        return "interpret"
+    if cfg.pallas_merge == 1 and kernel_platform_ok():
+        return "kernel"
+    return "xla"
 
-        from .pallas_merge import (gm_merge_pallas_one,
-                                   gm_merge_pallas_one_3d,
-                                   gm_merge_pallas_one_4d, pallas_available)
-        fn = {2: _ft.partial(gm_merge_pallas_one, metric=metric),
-              3: gm_merge_pallas_one_3d,
-              4: gm_merge_pallas_one_4d}[D]
-        if cfg.pallas_merge == 2:
-            return fn(mean, cov, weight, active,
-                      float(cfg.min_separation), out_cap, interpret=True)
-        if pallas_available():
-            return fn(mean, cov, weight, active,
-                      float(cfg.min_separation), out_cap)
-    return gm_merge(mean, cov, weight, active, cfg.min_separation, out_cap,
-                    cfg.distance_metric)
+
+def switch_widths(n):
+    """Static lane widths for an exact live-prefix width switch over a
+    weight-sorted axis of length ``n``: the powers of two from n/4 up to
+    (not including) n, then n itself. A lax.switch on the live count picks
+    the narrowest width that holds every live lane, so the sliced-off tail
+    is all-inactive and the result is exact."""
+    widths = []
+    w = 1 << max(0, int(n) // 4 - 1).bit_length()
+    while w < n:
+        widths.append(w)
+        w *= 2
+    return widths + [int(n)]
+
+
+def width_switch(n_live, widths, make_branch, *operands):
+    """lax.switch over ``make_branch(w)`` for w in ``widths`` on the
+    narrowest width holding ``n_live`` (a traced scalar)."""
+    if len(widths) == 1:
+        return make_branch(widths[0])(*operands)
+    sel = sum((n_live > w).astype(jnp.int32) for w in widths[:-1])
+    return jax.lax.switch(sel, [make_branch(w) for w in widths], *operands)
+
+
+def pack_planes(mean, cov, weight, active):
+    """(mean [P, N, D], cov [P, N, D, D], weight, active) -> packed SoA
+    planes [P, 2 + D + D(D+1)/2, N]: w, act, means, upper-triangle covs.
+    Inverse of :func:`unpack_planes`."""
+    D = mean.shape[-1]
+    planes = [weight, active.astype(weight.dtype)]
+    planes += [mean[..., i] for i in range(D)]
+    planes += [cov[..., a, b] for a in range(D) for b in range(a, D)]
+    return jnp.stack(planes, axis=-2)
 
 
 def merge_batch_dispatch(mean, cov, weight, active, cfg, out_cap,
                          sorted_prefix=False):
-    """Batch-level merge routing (mean [P, N, D], ...).
-
-    Prefer this over vmapping :func:`merge_dispatch`: the Pallas kernel's
-    particle-block vectorization only engages when it sees the whole batch
-    (inside vmap it degenerates to one particle per program — measured 5x
-    slower).
-
-    ``sorted_prefix``: the caller guarantees every particle's ACTIVE lanes
-    occupy a weight-sorted prefix (true for all the top-cap-compacted
-    candidate sets). The dispatcher then lax.switches between narrower
-    static-width kernel variants based on the batch's max live count —
-    exact (the dropped tail is all-inactive) and roughly halves the merge's
-    per-cluster lane sweeps in the common case where live lanes fill only
-    a fraction of the cap.
-    """
-    D = mean.shape[-1]
-    metric = cfg.distance_metric
-    eligible = metric == 0 and D in (2, 3, 4) or (metric == 1 and D == 2)
-    if cfg.pallas_merge and eligible:
-        import functools as _ft
-
-        from .pallas_merge import (gm_merge_pallas_batch,
-                                   gm_merge_pallas_batch_3d,
-                                   gm_merge_pallas_batch_4d, pallas_available)
-        # sorted_prefix also means weight-DESCENDING active lanes (top-cap
-        # compaction emits them sorted): the 2D kernel then picks its
-        # greedy principals with one cumsum instead of R argmax reductions
-        rp = max(1, getattr(cfg, "merge_r_par", 8))
-        blk = int(getattr(cfg, "merge_block", 0)) or None
-        fn = {2: _ft.partial(gm_merge_pallas_batch, metric=metric,
-                             sorted_w=sorted_prefix, r_par=rp, block=blk),
-              3: _ft.partial(gm_merge_pallas_batch_3d,
-                             sorted_w=sorted_prefix, r_par=rp, block=blk),
-              4: _ft.partial(gm_merge_pallas_batch_4d,
-                             sorted_w=sorted_prefix, r_par=rp,
-                             block=blk)}[D]
-        interpret = cfg.pallas_merge == 2
-        if interpret or pallas_available():
-            N = mean.shape[1]
-            # narrower variants at lane-tile multiples (quarter steps; real
-            # live counts often sit between N/2 and N — BENCH.md), ALWAYS
-            # ending with the full width so no live count can be truncated
-            widths = []
-            for frac in WIDTH_FRACS:
-                w = -(-int(N // frac) // 128) * 128     # ceil to lane tile
-                if 0 < w < N and w not in widths:
-                    widths.append(w)
-            widths.append(N)
-            if sorted_prefix and len(widths) > 1:
-                n_live = jnp.max(jnp.sum(
-                    (active & (weight > 0)).astype(jnp.int32), axis=1))
-                sel = sum((n_live > w).astype(jnp.int32)
-                          for w in widths[:-1])
-
-                def make_branch(w):
-                    def branch(m, c, wt, a):
-                        return fn(m[:, :w], c[:, :w], wt[:, :w], a[:, :w],
-                                  float(cfg.min_separation), out_cap,
-                                  interpret=interpret)
-                    return branch
-
-                return jax.lax.switch(
-                    sel, [make_branch(w) for w in widths],
-                    mean, cov, weight, active)
-            return fn(mean, cov, weight, active,
-                      float(cfg.min_separation), out_cap,
-                      interpret=interpret)
-    return gm_merge_batch(mean, cov, weight, active, cfg.min_separation,
-                          out_cap, cfg.distance_metric)
+    """Batch merge (mean [P, N, D], ...) routed by :func:`merge_route`;
+    see :func:`merge_batch_dispatch_packed`."""
+    if merge_route(cfg) == "xla":
+        return gm_merge_batch(mean, cov, weight, active, cfg.min_separation,
+                              out_cap, cfg.distance_metric)
+    return merge_batch_dispatch_packed(
+        pack_planes(mean, cov, weight, active), mean.shape[-1], cfg, out_cap,
+        sorted_prefix)
 
 
 def unpack_planes(packed, D):
     """Planes [P, C, N] -> (mean [P, N, D], cov [P, N, D, D], weight,
-    active). Inverse of the packed layout (w, act, means, upper-tri cov)."""
+    active). Inverse of :func:`pack_planes`."""
     weight = packed[:, 0]
     active = packed[:, 1] > 0.5
     mean = jnp.stack([packed[:, 2 + i] for i in range(D)], axis=-1)
@@ -233,223 +190,45 @@ def unpack_planes(packed, D):
     return mean, cov, weight, active
 
 
-def _tiled_merge_packed(packed, cfg, out_cap, interpret, r_par, T=4):
-    """Spatially-tiled greedy merge on packed 2D planes [P, 7, N].
-
-    Each particle's candidates are partitioned into T=4 position
-    quadrants about the live-candidate centroid; tiles fold into the
-    Pallas kernel's batch axis (rows are self-contained), so each tile
-    merges independently at ~N/T lane width with ~1/T the sequential
-    cluster trips — the greedy loop's cost is trips x width (BENCH.md
-    dense roofline), giving ~T x less reduction work. Approximation:
-    cross-tile pairs within min_separation stay unmerged this step (see
-    config.merge_spatial_tiles). The per-tile input width is
-    lax.switched on the batch's max per-tile count; when it exceeds the
-    widest tile build, the exact untiled merge runs instead.
-
-    Output lanes interleave tiles (lane j*T + t = tile t's j-th
-    cluster), so live clusters occupy a prefix of length
-    T * max_t(n_merged_t); n_merged reports that prefix bound (its only
-    consumer is the post-half width selector, filters/phd.py).
-    """
-    from .pallas_merge import gm_merge_pallas_batch_packed
-
-    P, C, N = packed.shape
-    oc_t = out_cap // T
-    w, act = packed[:, 0], packed[:, 1]
-    mx, my = packed[:, 2], packed[:, 3]
-    live = (act > 0.5) & (w > 0)
-    livef = live.astype(jnp.float32)
-    cnt = jnp.maximum(jnp.sum(livef, axis=1), 1.0)
-    cx = jnp.sum(livef * mx, axis=1) / cnt
-    cy = jnp.sum(livef * my, axis=1) / cnt
-    tid = 2 * (mx > cx[:, None]).astype(jnp.int32) \
-        + (my > cy[:, None]).astype(jnp.int32)
-    tid = jnp.where(live, tid, T)            # inactive lanes sort last
-    # ONE stable payload sort carries the planes into tile-major order
-    # (ascending tile; the global weight-descending order is preserved
-    # WITHIN each tile, so sorted_w still holds per tile-row)
-    sorted_ops = jax.lax.sort(
-        (tid,) + tuple(packed[:, c] for c in range(C)), num_keys=1,
-        dimension=-1)
-    pk_sorted = jnp.stack(sorted_ops[1:], axis=1)         # [P, C, N]
-    counts = jnp.sum((tid[:, :, None]
-                      == jnp.arange(T, dtype=jnp.int32)[None, None, :])
-                     .astype(jnp.int32), axis=1)          # [P, T]
-    starts = jnp.cumsum(counts, axis=1) - counts
-    n_tile_max = jnp.max(counts)
-
-    def tile_branch(ct):
-        def branch(pk, counts_, starts_):
-            # the ct-padded per-tile extraction is one Pallas one-hot
-            # gather from the tile-sorted planes — an XLA take_along_axis
-            # over the lane axis serializes on TPU (measured 13 ms/step
-            # at dense P=1024), and composing a separate permutation
-            # gather cost another ~3 ms
-            from .pallas_select import onehot_cols_batch
-            base = starts_[:, :, None] + jnp.arange(ct, dtype=jnp.int32)
-            valid = (jnp.arange(ct, dtype=jnp.int32)[None, None]
-                     < counts_[:, :, None])               # [P, T, ct]
-            flat = jnp.clip(base, 0, N - 1).reshape(P, T * ct)
-            g = onehot_cols_batch(flat, pk, interpret=bool(interpret))
-            vm = valid.reshape(P, 1, T * ct).astype(g.dtype)
-            g = g.at[:, :2].multiply(vm)                  # kill w + act
-            g = (g.reshape(P, C, T, ct).transpose(0, 2, 1, 3)
-                 .reshape(P * T, C, ct))
-            om, oc, ow, nm, nd = gm_merge_pallas_batch_packed(
-                g, float(cfg.min_separation), oc_t, interpret=interpret,
-                r_par=r_par, metric=0, sorted_w=True,
-                block=min(32, P * T))
-            om = (om.reshape(P, T, oc_t, 2).transpose(0, 2, 1, 3)
-                  .reshape(P, out_cap, 2))
-            oc = (oc.reshape(P, T, oc_t, 2, 2).transpose(0, 2, 1, 3, 4)
-                  .reshape(P, out_cap, 2, 2))
-            ow = ow.reshape(P, T, oc_t).transpose(0, 2, 1).reshape(
-                P, out_cap)
-            nm2 = nm.reshape(P, T)
-            nm_bound = T * jnp.max(nm2, axis=1)
-            # branch selection guarantees counts_ <= ct here, so no
-            # components are truncated by the per-tile padding
-            nd = nd.reshape(P, T).sum(axis=1)
-            return om, oc, ow, nm_bound, nd
-        return branch
-
-    def untiled(pk, counts_, starts_):
-        # overflow fallback (n_tile_max beyond the largest tile cap):
-        # full-width merge on the original weight-sorted planes. This
-        # regime means one tile holds >384 live components, i.e. the
-        # global live extent is already near N — width switching would
-        # pick the widest branch anyway, so full width costs nothing.
-        return gm_merge_pallas_batch_packed(
-            packed, float(cfg.min_separation), out_cap,
-            interpret=interpret, r_par=r_par, metric=0, sorted_w=True)
-
-    cts = [ct for ct in (128, 256, 384) if ct < N]
-    sel = sum((n_tile_max > ct).astype(jnp.int32) for ct in cts)
-    return jax.lax.switch(sel, [tile_branch(ct) for ct in cts]
-                          + [untiled], pk_sorted, counts, starts)
-
-
 def merge_batch_dispatch_packed(packed, D, cfg, out_cap,
                                 sorted_prefix=False):
-    """Batch merge on pre-packed SoA planes [P, C, N] (C = 7 for D=2, 16
-    for D=4): w, act, mean planes, upper-triangle covariance planes.
+    """Batch merge on packed SoA planes [P, 2 + D + D(D+1)/2, N].
 
-    Same routing as :func:`merge_batch_dispatch`, but callers that already
-    hold component planes (the deferred candidate gather) never form
-    [P, N, D]/[P, N, D, D] arrays — their 2-4-wide minor dims pad 32-64x
-    under TPU (8, 128) tiling (measured 17.7 GB of HLO temps at P=10240).
+    The Pallas kernel (ops/pallas_merge.py) runs when :func:`merge_route`
+    selects it and the metric is implemented there (Mahalanobis for D =
+    2, 3, 4; Hellinger for D = 2); otherwise the XLA while_loop runs.
+
+    ``sorted_prefix``: the caller guarantees every particle's active lanes
+    are a weight-DESCENDING prefix (true for all the top-cap-compacted
+    candidate sets). The kernel then picks principals with one cumsum, and
+    the dispatch lax.switches between narrower static widths on the
+    batch's max live count (:func:`switch_widths`) — exact, and it cuts
+    the per-cluster lane sweep when live lanes fill a fraction of the cap.
     """
+    route = merge_route(cfg)
     metric = cfg.distance_metric
-    eligible = (metric == 0 and D in (2, 4)) or (metric == 1 and D == 2)
-    if cfg.pallas_merge and eligible:
-        import functools as _ft
+    if route == "xla" or not (metric == 0 or D == 2):
+        mean, cov, weight, active = unpack_planes(packed, D)
+        return gm_merge_batch(mean, cov, weight, active, cfg.min_separation,
+                              out_cap, metric)
+    from .pallas_merge import gm_merge_pallas
 
-        from .pallas_merge import (gm_merge_pallas_batch_packed,
-                                   gm_merge_pallas_batch_packed_4d,
-                                   pallas_available)
-        # sorted_prefix also means weight-DESCENDING active lanes — see
-        # merge_batch_dispatch
-        rp = max(1, getattr(cfg, "merge_r_par", 8))
-        blk = int(getattr(cfg, "merge_block", 0)) or None
-        pa = bool(getattr(cfg, "merge_par_assign", 0))
-        fn = {2: _ft.partial(gm_merge_pallas_batch_packed, metric=metric,
-                             sorted_w=sorted_prefix, r_par=rp, block=blk,
-                             par_assign=pa),
-              4: _ft.partial(gm_merge_pallas_batch_packed_4d,
-                             sorted_w=sorted_prefix, r_par=rp,
-                             block=blk, par_assign=pa)}[D]
-        interpret = cfg.pallas_merge == 2
-        if interpret or pallas_available():
-            N = packed.shape[-1]
-            tiles = int(getattr(cfg, "merge_spatial_tiles", 0))
-            if (tiles == 4 and D == 2 and metric == 0 and sorted_prefix
-                    and packed.shape[1] == 7 and out_cap % tiles == 0
-                    and N >= 256):
-                return _tiled_merge_packed(packed, cfg, out_cap,
-                                           interpret, rp, T=tiles)
-            widths = []
-            for frac in WIDTH_FRACS:
-                w = -(-int(N // frac) // 128) * 128     # ceil to lane tile
-                if 0 < w < N and w not in widths:
-                    widths.append(w)
-            widths.append(N)
-            if sorted_prefix and len(widths) > 1:
-                n_live = jnp.max(jnp.sum(
-                    ((packed[:, 1] > 0.5) & (packed[:, 0] > 0))
-                    .astype(jnp.int32), axis=1))
-                sel = sum((n_live > w).astype(jnp.int32)
-                          for w in widths[:-1])
+    def make_branch(w):
+        def branch(pk):
+            return gm_merge_pallas(
+                pk[:, :, :w], D, float(cfg.min_separation), out_cap,
+                metric=metric, sorted_w=sorted_prefix,
+                r_par=max(1, cfg.merge_r_par),
+                interpret=route == "interpret")
+        return branch
 
-                def make_branch(w):
-                    def branch(pk):
-                        return fn(pk[:, :, :w], float(cfg.min_separation),
-                                  out_cap, interpret=interpret)
-                    return branch
-
-                return jax.lax.switch(
-                    sel, [make_branch(w) for w in widths], packed)
-            return fn(packed, float(cfg.min_separation), out_cap,
-                      interpret=interpret)
-    mean, cov, weight, active = unpack_planes(packed, D)
-    return gm_merge_batch(mean, cov, weight, active, cfg.min_separation,
-                          out_cap, cfg.distance_metric)
-
-
-def merge_batch_dispatch_tables(gather, cfg, out_cap, sorted_prefix=False):
-    """Fused gather+combine+merge dispatch (D = 2 fast path).
-
-    Takes the deferred-gather dict of filters.phd._update_single_pre
-    (k_eff/m_eff/is_p/is_d/sel_act/cand_w [P, cap] + tables t_k/t_m) and
-    runs ops.pallas_merge.gm_merge_pallas_batch_tables — the packed
-    [P, C, cap] candidate planes never materialize. Returns the mg tuple,
-    or ``None`` when the fused kernel is not eligible (caller falls back to
-    the two-kernel gather -> packed-merge route). Width switching slices
-    the per-lane planes exactly like merge_batch_dispatch_packed; the
-    source tables stay full-width.
-    """
-    if not (cfg.pallas_merge and getattr(cfg, "fused_gather_merge", 0)
-            and cfg.distance_metric in (0, 1)):
-        return None
-    from .pallas_merge import gm_merge_pallas_batch_tables, pallas_available
-    interpret = cfg.pallas_merge == 2
-    if not (interpret or pallas_available()):
-        return None
-
-    import functools as _ft
-    ints = jnp.stack([gather["k_eff"], gather["m_eff"],
-                      gather["is_p"].astype(jnp.int32),
-                      gather["is_d"].astype(jnp.int32)], axis=1)
-    flts = jnp.stack([gather["cand_w"],
-                      gather["sel_act"].astype(jnp.float32)], axis=1)
-    t_k, t_m = gather["t_k"], gather["t_m"]
-    rp = max(1, getattr(cfg, "merge_r_par", 8))
-    fn = _ft.partial(gm_merge_pallas_batch_tables,
-                     metric=cfg.distance_metric, sorted_w=sorted_prefix,
-                     r_par=rp, interpret=interpret)
-
-    N = ints.shape[-1]
-    widths = []
-    for frac in WIDTH_FRACS:
-        w = -(-int(N // frac) // 128) * 128          # ceil to lane tile
-        if 0 < w < N and w not in widths:
-            widths.append(w)
-    widths.append(N)
-    if sorted_prefix and len(widths) > 1:
-        n_live = jnp.max(jnp.sum(
-            (gather["sel_act"] & (gather["cand_w"] > 0)).astype(jnp.int32),
-            axis=1))
-        sel = sum((n_live > w).astype(jnp.int32) for w in widths[:-1])
-
-        def make_branch(w):
-            def branch(i_, f_, tk_, tm_):
-                return fn(i_[:, :, :w], f_[:, :, :w], tk_, tm_,
-                          float(cfg.min_separation), out_cap)
-            return branch
-
-        return jax.lax.switch(sel, [make_branch(w) for w in widths],
-                              ints, flts, t_k, t_m)
-    return fn(ints, flts, t_k, t_m, float(cfg.min_separation), out_cap)
+    N = packed.shape[-1]
+    if not sorted_prefix:
+        return make_branch(N)(packed)
+    n_live = jnp.max(jnp.sum(
+        ((packed[:, 1] > 0.5) & (packed[:, 0] > 0)).astype(jnp.int32),
+        axis=1))
+    return width_switch(n_live, switch_widths(N), make_branch, packed)
 
 
 def select_live_topT(grid, thr, T):
@@ -461,13 +240,8 @@ def select_live_topT(grid, thr, T):
     feature index — yields the TRUE heaviest T live lanes per measurement
     (stable: ties keep index order, like lax.top_k).
 
-    This replaced a two-tier pipeline (cumsum rank compaction to the first
-    2T live lanes via a one-hot einsum, then a [M, 2T] sort): the einsum's
-    [M, K, 2T] one-hot operand must materialize in HBM (dot operands are
-    never fused), measured 27 ms at P=10240 vs ~2 ms for this sort — and
-    the sort keeps the heaviest T of ALL live lanes, not just of the first
-    2T in index order. (lax.top_k, argmax sweeps and batched gathers all
-    lower poorly here — see BENCH.md.)
+    The sort keeps the heaviest T of ALL live lanes, not just of the
+    first live lanes in index order.
 
     Returns (vals [M, T], idx [M, T] int32 feature indices,
     n_live scalar int32, n_kept scalar int32).
@@ -489,10 +263,9 @@ def topcap_sort(red_w, red_act, red_flat, cap):
     """Global top-``cap``-by-weight lane selection via ONE 2-operand
     payload sort carrying lane ids (single particle).
 
-    Stable ascending sort on -w ties by index exactly like ``lax.top_k``
-    but partitions under SPMD and carries the id payload for free (top_k +
-    a one-hot index map measured 14 ms at P=10240; an extra sort operand
-    adds a full data lane to the sort network).
+    Stable ascending sort on -w ties by index exactly like ``lax.top_k``,
+    but partitions under SPMD along the particle axis and carries the id
+    payload for free.
 
     Returns (idx [cap] from red_flat, cand_w [cap], sel_act [cap] bool,
     n_dropped_live scalar).
@@ -512,8 +285,7 @@ def topk_compact_indices(weight, active, cap):
     The fast compaction path: run ``top_k`` over the [N] candidate *weights*
     alone and let the caller gather means/covariances piecewise from their
     small source tables — the O(N D^2) candidate covariance array is never
-    materialized (measured ~13 ms/step at P=512, N=8384 for the gather-based
-    :func:`compact_candidates`).
+    materialized (unlike :func:`compact_candidates`).
 
     Returns (idx [cap], values [cap], sel_act [cap] bool, n_dropped_live).
     """

@@ -1,6 +1,6 @@
 """Core math library (pure jnp, no sharding).
 
-TPU-native re-design of the reference device math library
+Re-design of the reference device math library
 (/root/reference/src/device_math.cuh). Everything here is batched / vmap-able
 over arbitrary leading axes and works on ``mean[..., D]`` / ``cov[..., D, D]``
 layouts instead of the reference's flat per-Gaussian structs.

@@ -1,6 +1,6 @@
 """Systematic (low-variance) particle resampling under jit.
 
-TPU-native equivalent of ``resampleParticles`` (main.cpp:453-501): per-stratum
+Equivalent of ``resampleParticles`` (main.cpp:453-501): per-stratum
 jittered systematic resampling — stratum j draws ``r_j = (j + u_j)/N`` with
 ``u_j ~ U(0, 1)`` (main.cpp:468), ancestor = first index whose cumulative
 weight exceeds r_j. The reference's weight-sum overrun guard (fill with the

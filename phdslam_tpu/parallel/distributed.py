@@ -3,16 +3,16 @@
 The reference is single-process/single-GPU (SURVEY.md §2.4 — no MPI/NCCL);
 this module is the new distributed backend BASELINE.md asks for. One JAX
 process per host; ``jax.distributed.initialize`` wires the hosts into one
-runtime over DCN, after which ``jax.devices()`` spans the whole pod slice
-and the SAME jit + NamedSharding step from :mod:`.sharding` runs globally —
-per-step collectives ride ICI (11.9 KB/step of O(P) scalars, see
-tools/scaling_bench.py), DCN is touched only at init, dataset broadcast,
-and checkpoints.
+runtime, after which ``jax.devices()`` spans every host's GPUs and the
+SAME jit + NamedSharding step from :mod:`.sharding` runs globally — the
+per-step collectives are O(P) scalars (NCCL on GPUs, see
+tools/scaling_bench.py); the network between hosts is touched only at
+init, dataset broadcast and checkpoints.
 
 Typical launch (same command on every host; the scheduler provides the
 env vars):
 
-    python -m phdslam_tpu cfg/ackerman.cfg synth --out-dir runs/pod \
+    python -m phdslam_tpu cfg/ackerman.cfg synth --out-dir runs/multihost \
         --distributed
 
 or programmatically::
@@ -38,11 +38,12 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> bool:
     """Initialize the multi-host runtime when running under a launcher.
 
-    Auto-detects standard cluster environments (TPU pod metadata, SLURM,
-    ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
-    overrides). Returns True if a multi-process runtime was initialized,
-    False for the single-host case (everything keeps working on the local
-    devices — the mesh from :func:`global_mesh` is then host-local).
+    Reads ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
+    ``JAX_PROCESS_ID`` when the arguments are not given (SLURM multi-node
+    jobs are detected too). Returns True if a multi-process runtime was
+    initialized, False for the single-host case (everything keeps working
+    on the local devices — the mesh from :func:`global_mesh` is then
+    host-local). A failed initialization raises.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
@@ -52,24 +53,14 @@ def initialize(coordinator_address: Optional[str] = None,
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
     explicit = coordinator_address is not None
-    # multi-worker evidence only: a single-host TPU VM also sets
-    # TPU_WORKER_HOSTNAMES (with one entry)
-    hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    multi_worker = hosts.count(",") > 0 \
-        or int(os.environ.get("SLURM_JOB_NUM_NODES", "1")) > 1 \
+    multi_worker = int(os.environ.get("SLURM_JOB_NUM_NODES", "1")) > 1 \
         or (num_processes or 1) > 1
     if not explicit and not multi_worker:
         return False
-
-    try:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id)
-    except (ValueError, RuntimeError) as e:  # pragma: no cover
-        import warnings
-        warnings.warn(f"multi-host init skipped: {e}")
-        return False
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id)
     return jax.process_count() > 1
 
 

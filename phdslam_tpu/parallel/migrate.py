@@ -2,8 +2,8 @@
 
 The naive post-resampling gather ``x[ancestors]`` lowers, under the SPMD
 partitioner, to an all-gather of the ENTIRE map state (14.7 MB at
-P=1024/K=128 — BENCH.md collective inventory): every device materializes
-every row to pick the few it needs.
+P=1024/K=128, from the compiled module's collective inventory): every
+device materializes every row to pick the few it needs.
 
 This module replaces it with a neighbor exchange (SURVEY.md §2.4 note)
 that exploits two facts:

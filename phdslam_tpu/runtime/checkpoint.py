@@ -5,9 +5,10 @@ The reference's only persistence is a boost binary serialization of the full
 /root/reference/src/main.cpp:87-145, 1262-1269), reloaded by the profiling
 mode to replay a single ``phdUpdateSynth`` (main.cpp:1314-1321).
 
-Here: general checkpointing of the sharded filter-state pytree (orbax when
-available, numpy fallback), usable every N steps for preemption recovery
-(SURVEY.md §5), plus the same single-update replay harness.
+Here: general checkpointing of the filter-state pytree (one ``.npz`` of its
+leaves plus the pickled tree structure), usable every N steps for
+preemption recovery (SURVEY.md §5), plus the same single-update replay
+harness.
 """
 
 from __future__ import annotations
@@ -19,47 +20,29 @@ from typing import Any, Optional
 import jax
 import numpy as np
 
-try:
-    import orbax.checkpoint as ocp
-    _HAVE_ORBAX = True
-except Exception:  # pragma: no cover
-    _HAVE_ORBAX = False
-
-
-def save_checkpoint(path: str, state: Any, extra: Optional[dict] = None,
-                    backend: Optional[str] = None):
-    """Save a filter-state pytree (+ optional extras dict of arrays).
-
-    ``backend="numpy"`` forces the plain npz+treedef layout — used when a
-    SINGLE process of a multi-process group saves an already-gathered host
-    state (orbax's multi-host save inserts its own cross-process sync
-    barriers, which deadlock/mismatch when only rank 0 calls it).
-    """
+def save_checkpoint(path: str, state: Any, extra: Optional[dict] = None):
+    """Save a filter-state pytree (+ optional extras dict of arrays) as
+    ``<path>/leaves.npz`` + ``<path>/treedef.pkl``. The leaves are fetched
+    to the host first, so on a multi-process group only one process (the
+    one holding a gathered host state) should call it."""
     path = os.path.abspath(path)
     payload = {"state": state}
     if extra:
         payload["extra"] = extra
-    if _HAVE_ORBAX and backend != "numpy":
-        ckptr = ocp.StandardCheckpointer()
-        host_payload = jax.tree.map(np.asarray, payload)
-        ckptr.save(path, host_payload, force=True)
-        ckptr.wait_until_finished()
-    else:
-        leaves, treedef = jax.tree.flatten(payload)
-        os.makedirs(path, exist_ok=True)
-        np.savez(os.path.join(path, "leaves.npz"),
-                 *[np.asarray(x) for x in leaves])
-        with open(os.path.join(path, "treedef.pkl"), "wb") as fh:
-            pickle.dump(treedef, fh)
+    leaves, treedef = jax.tree.flatten(payload)
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "leaves.npz"),
+             *[np.asarray(x) for x in leaves])
+    with open(os.path.join(path, "treedef.pkl"), "wb") as fh:
+        pickle.dump(treedef, fh)
 
 
 def _validate_like(like_tree: Any, loaded_tree: Any, path: str):
     """Shape/dtype check of a restored pytree against the caller's ``like``
     template: resuming a checkpoint saved under a different particle/feature
     capacity must fail with a clear error here, not an opaque jit shape
-    error hundreds of frames later (advisor finding, round 3). The numpy
-    layout restores raw leaves with no structural validation of its own;
-    orbax validates via its own ``like`` mechanics."""
+    error hundreds of frames later. The npz layout restores raw leaves
+    with no structural validation of its own."""
     like_leaves, like_def = jax.tree.flatten(like_tree)
     loaded_leaves, loaded_def = jax.tree.flatten(loaded_tree)
     if like_def != loaded_def:
@@ -84,43 +67,22 @@ def load_checkpoint(path: str, like: Any, extra_like: Optional[dict] = None):
     ``like`` is a pytree with the same structure (e.g. a fresh init_state)
     used to restore types/shapes. When the checkpoint was saved with an
     ``extra`` dict, pass a matching ``extra_like`` and receive
-    ``(state, extra)`` instead of just the state. The on-disk layout
-    (orbax vs numpy) is auto-detected.
+    ``(state, extra)`` instead of just the state.
     """
     path = os.path.abspath(path)
-    payload_like = {"state": like}
+    with open(os.path.join(path, "treedef.pkl"), "rb") as fh:
+        treedef = pickle.load(fh)
+    data = np.load(os.path.join(path, "leaves.npz"))
+    leaves = [data[k] for k in data.files]
+    payload = jax.tree.unflatten(treedef, leaves)
+    # validate the state subtree only: a checkpoint saved WITH extras is
+    # still loadable without requesting them (and vice versa fails in
+    # unflatten above)
+    _validate_like(like, payload["state"], path)
+    state = jax.tree.map(jax.numpy.asarray, payload["state"])
     if extra_like is not None:
-        payload_like["extra"] = extra_like
-    if os.path.exists(os.path.join(path, "leaves.npz")):
-        with open(os.path.join(path, "treedef.pkl"), "rb") as fh:
-            treedef = pickle.load(fh)
-        data = np.load(os.path.join(path, "leaves.npz"))
-        leaves = [data[k] for k in data.files]
-        payload = jax.tree.unflatten(treedef, leaves)
-        # validate the state subtree only: a checkpoint saved WITH extras is
-        # still loadable without requesting them (and vice versa fails in
-        # unflatten above)
-        _validate_like(like, payload["state"], path)
-        if extra_like is not None:
-            return payload["state"], payload.get("extra")
-        return payload["state"]
-    if _HAVE_ORBAX:
-        ckptr = ocp.StandardCheckpointer()
-        host_like = jax.tree.map(np.asarray, payload_like)
-        restored = ckptr.restore(path, host_like)
-        state = jax.tree.map(jax.numpy.asarray, restored["state"])
-        if extra_like is not None:
-            return state, restored.get("extra")
-        return state
-    else:  # pragma: no cover
-        with open(os.path.join(path, "treedef.pkl"), "rb") as fh:
-            treedef = pickle.load(fh)
-        data = np.load(os.path.join(path, "leaves.npz"))
-        leaves = [data[k] for k in data.files]
-        payload = jax.tree.unflatten(treedef, leaves)
-        if extra_like is not None:
-            return payload["state"], payload.get("extra")
-        return payload["state"]
+        return state, payload.get("extra")
+    return state
 
 
 def profile_single_update(cfg, ckpt_path: str, z=None, z_mask=None):

@@ -1,6 +1,6 @@
 // Native linear-sum-assignment (Munkres/Hungarian) solver.
 //
-// TPU-native counterpart of the reference's COMPILED assignment core: the
+// Counterpart of the reference's COMPILED assignment core: the
 // evaluation oracle's Munkres steps live in Cython
 // (/root/reference/python/munkres_step4.pyx, driven by python/ospa.py:181-218)
 // precisely because the pure-Python inner loops were too slow for batch

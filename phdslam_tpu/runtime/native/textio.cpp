@@ -1,6 +1,6 @@
 // Native text-IO fast path for dataset parsing and log writing.
 //
-// TPU-native counterpart of the reference's C++ loaders/writers
+// Counterpart of the reference's C++ loaders/writers
 // (/root/reference/src/main.cpp:147-283 loadMeasurements/loadControls,
 // :848-954 writeLog). The Python implementations in runtime/io.py are the
 // portable fallback; this extension accelerates the host-side IO so large

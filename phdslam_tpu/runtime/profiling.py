@@ -54,7 +54,7 @@ def timed_call(fn, *args, **kwargs):
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """jax.profiler trace around a block (TPU timeline -> TensorBoard)."""
+    """jax.profiler trace around a block (device timeline -> TensorBoard)."""
     os.makedirs(log_dir, exist_ok=True)
     jax.profiler.start_trace(log_dir)
     try:
@@ -65,7 +65,7 @@ def trace(log_dir: str):
 
 @contextlib.contextmanager
 def debug_mode(nan_checks: bool = True, disable_jit: bool = False):
-    """NaN detection + optional jit-disable (the TPU analog of the
+    """NaN detection + optional jit-disable (the analog of the
     reference's -G -DTHRUST_DEBUG builds + NaN-weight abort)."""
     ctxs = []
     if nan_checks:

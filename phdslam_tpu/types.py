@@ -1,6 +1,6 @@
 """Filter state pytrees.
 
-TPU-native replacement for the reference's particle containers
+Replacement for the reference's particle containers
 (/root/reference/src/slamtypes.h:275-337 ``ParticleSLAM``/``SynthSLAM``).
 
 Design (SURVEY.md §7.1): fixed-capacity, device-resident structure-of-arrays
@@ -17,10 +17,11 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from .pytree import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class GMState:
     """Per-particle fixed-capacity Gaussian mixture (SoA).
 
@@ -51,7 +52,7 @@ class GMState:
         return self.mean.shape[-1]
 
 
-@struct.dataclass
+@pytree_dataclass
 class FilterState:
     """Full Rao-Blackwellized PHD-SLAM filter state (SynthSLAM equivalent).
 

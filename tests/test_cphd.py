@@ -189,10 +189,9 @@ def test_cphd_e2e_smoke():
 
 
 def test_cphd_det_kernel_route_matches_grid_route():
-    """The fused detection kernel route (min_fw=0, cb=0; lambda from row
-    sums, post-hoc thresholding) must reproduce the [M, K]-grid route:
-    same maps, cardinalities and particle weights (the CPHD fast-path
-    equivalence, phdfilter.cu.bak:1058-1479)."""
+    """The CPHD fast path with the merge kernel (interpret mode) must
+    reproduce it with the XLA while_loop merge: same maps, cardinalities
+    and particle weights (phdfilter.cu.bak:1058-1479)."""
     import dataclasses
 
     from phdslam_tpu.filters.cphd import cphd_constants, cphd_update
@@ -204,7 +203,7 @@ def test_cphd_det_kernel_route_matches_grid_route():
         max_range=20.0, std_range=0.25, std_bearing=0.02, clutter_rate=2.0,
         pd=0.95, birth_weight=0.05, min_separation=2.0,
         merge_candidate_cap=48, detection_topk=8,
-        resample_threshold=0.3, seed=1, pallas_detect=2, pallas_merge=2)
+        resample_threshold=0.3, seed=1, pallas_merge=2)
     rng = np.random.default_rng(3)
     state = init_state(cfg)
     K, P = cfg.max_features, cfg.n_particles
@@ -229,7 +228,7 @@ def test_cphd_det_kernel_route_matches_grid_route():
     consts = cphd_constants(cfg)
 
     st_k, ovf_k = cphd_update(state, z, zm, consts, cfg)
-    cfg_g = dataclasses.replace(cfg, pallas_detect=0)
+    cfg_g = dataclasses.replace(cfg, pallas_merge=0)
     st_g, ovf_g = cphd_update(state, z, zm, consts, cfg_g)
 
     np.testing.assert_allclose(np.asarray(st_k.log_weight),
@@ -301,7 +300,7 @@ def test_gated_births_suppress_compatible_measurements():
 
 
 def test_cardinality_predict_batch_matches_per_particle():
-    """The linear-domain Toeplitz-matmul convolution (MXU form) equals the
+    """The linear-domain Toeplitz-matmul convolution (matmul form) equals the
     per-particle log-domain logsumexp convolution."""
     import jax
 

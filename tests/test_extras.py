@@ -208,7 +208,7 @@ def test_eap_extraction_in_step():
 
 def test_eap_cadence_knob():
     """cfg.eap_every = N: EAP tree on step % N == 0, MAP extraction in
-    between (amortizes the ~630 ms tree at P=10240/K=1024, BENCH.md)."""
+    between (amortizes the tree's cost to ~1/N per step)."""
     from phdslam_tpu.filters.phd import make_step_fn
     from phdslam_tpu.types import init_state
 

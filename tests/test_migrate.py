@@ -15,7 +15,7 @@ from phdslam_tpu.parallel.migrate import (default_row_budget,
 @pytest.fixture(scope="module")
 def mesh():
     assert jax.device_count() >= 8
-    return make_mesh(8)
+    return make_mesh(8, devices=jax.devices("cpu"))
 
 
 def _equilibrium_ancestry(P, rng, max_shift=3):

@@ -173,17 +173,17 @@ def test_mixed_fast_path_matches_slow():
 
     from phdslam_tpu.filters.mixed import mixed_update
 
-    for weighting, pallas_detect in ((0, 0), (1, 0), (0, 2)):
-        # pallas_detect=2: the fused detection kernel route (interpret
-        # mode on CPU) must match the grid route too
+    for weighting, pallas_merge in ((0, 0), (1, 0), (0, 2)):
+        # pallas_merge=2: the 2D/4D merge kernels (interpret mode on CPU)
+        # must match the per-particle route too
         cfg = base_cfg(feature_model=2, particle_weighting=weighting,
                        n_particles=5, max_features=16, max_measurements=6,
                        merge_candidate_cap=64, detection_topk=8,
-                       pallas_detect=pallas_detect)
+                       pallas_merge=pallas_merge)
         state, z, mask = _mixed_state_and_z(cfg)
         fast, ovf_f = mixed_update(state, z, mask, cfg)
         slow_cfg = dataclasses.replace(cfg, mixed_fast_path=0,
-                                       pallas_detect=0)
+                                       pallas_merge=0)
         slow, ovf_s = mixed_update(state, z, mask, slow_cfg)
 
         np.testing.assert_allclose(np.asarray(fast.log_weight),
@@ -329,7 +329,7 @@ def test_dynamic_candidate_cap_fast_matches_slow():
             min_separation=2.0, tau=0.2, cov_vx_birth=0.25,
             cov_vy_birth=0.25, merge_candidate_cap=64,
             merge_candidate_cap_dynamic=32, detection_topk=4,
-            mixed_fast_path=fast, pallas_merge=0, pallas_detect=0,
+            mixed_fast_path=fast, pallas_merge=0,
             particle_weighting=0, seed=0)
 
     rng = np.random.default_rng(1)

@@ -1,14 +1,34 @@
-"""Pallas greedy-merge kernel vs the XLA while_loop reference."""
+"""Greedy-merge kernel (ops/pallas_merge.py, interpret mode on CPU) vs the
+XLA while_loop reference, plus the dispatch around it."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from phdslam_tpu.ops.gm_merge import gm_merge_batch
-from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch
+from phdslam_tpu.ops.gm_merge import gm_merge_batch, pack_planes
+from phdslam_tpu.ops.pallas_merge import gm_merge_pallas
 
-INTERPRET = jax.default_backend() == "cpu"
+
+def gm_merge_pallas_batch(mean, cov, weight, active, min_separation,
+                          out_cap, metric=0, sorted_w=False, r_par=8):
+    """The kernel on array-form inputs, as gm_merge_batch takes them."""
+    return gm_merge_pallas(pack_planes(mean, cov, weight, active),
+                           mean.shape[-1], min_separation, out_cap,
+                           metric=metric, sorted_w=sorted_w, r_par=r_par,
+                           interpret=True)
+
+
+def assert_same_merge(got, ref, cov_atol=1e-4):
+    """Same clusters in the same (greedy weight) order."""
+    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
+                               rtol=1e-4, atol=1e-6)  # weights
+    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
+                               rtol=1e-4, atol=1e-4)  # means
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
+                               rtol=1e-3, atol=cov_atol)  # covs
+    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
+    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
 
 
 def random_case(P, N, K, seed, cluster=True):
@@ -30,23 +50,25 @@ def random_case(P, N, K, seed, cluster=True):
             jnp.asarray(w), jnp.asarray(act))
 
 
+def sort_prefix(mean, cov, w, act):
+    """Active lanes as a weight-DESCENDING prefix, as top-cap callers emit
+    them."""
+    order = jnp.argsort(jnp.where(act, -w, 1.0), axis=-1)
+    mean_s = jnp.take_along_axis(mean, order[..., None], axis=1)
+    cov_s = jnp.take_along_axis(cov, order[..., None, None], axis=1)
+    act_s = jnp.take_along_axis(act, order, axis=1)
+    w_s = jnp.where(act_s, jnp.take_along_axis(w, order, axis=1), 0.0)
+    return mean_s, cov_s, w_s, act_s
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("cluster", [True, False])
 def test_pallas_merge_matches_xla(seed, cluster):
     P, N, K = 4, 64, 16
     mean, cov, w, act = random_case(P, N, K, seed, cluster)
     ref = gm_merge_batch(mean, cov, w, act, 4.0, K, 0)
-    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K,
-                                interpret=INTERPRET)
-    # same clusters in the same (greedy weight) order
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               rtol=1e-4, atol=1e-6)  # weights
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-4)  # means
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=1e-3, atol=1e-4)  # covs
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K)
+    assert_same_merge(got, ref)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -54,28 +76,12 @@ def test_pallas_merge_sorted_w_matches_xla(seed):
     """sorted_w=True (cumsum principal pick) on weight-DESCENDING active
     prefixes must match the XLA reference exactly like the argmax path."""
     P, N, K = 4, 64, 16
-    mean, cov, w, act = random_case(P, N, K, seed, cluster=True)
-    # compact actives into a weight-sorted prefix, as top-cap callers do
-    neg = jnp.where(act, -w, 1.0)
-    order = jnp.argsort(neg, axis=-1)
-    take = lambda x: jnp.take_along_axis(
-        x, order.reshape(order.shape + (1,) * (x.ndim - 2)), axis=1)
-    mean_s = jnp.take_along_axis(mean, order[..., None], axis=1)
-    cov_s = jnp.take_along_axis(cov, order[..., None, None], axis=1)
-    w_s = jnp.where(jnp.take_along_axis(act, order, axis=1),
-                    jnp.take_along_axis(w, order, axis=1), 0.0)
-    act_s = jnp.take_along_axis(act, order, axis=1)
+    mean_s, cov_s, w_s, act_s = sort_prefix(
+        *random_case(P, N, K, seed, cluster=True))
     ref = gm_merge_batch(mean_s, cov_s, w_s, act_s, 4.0, K, 0)
     got = gm_merge_pallas_batch(mean_s, cov_s, w_s, act_s, 4.0, K,
-                                interpret=INTERPRET, sorted_w=True)
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
+                                sorted_w=True)
+    assert_same_merge(got, ref)
 
 
 def test_pallas_merge_overflow_counts():
@@ -87,13 +93,12 @@ def test_pallas_merge_overflow_counts():
     w = jnp.asarray(rng.uniform(0.1, 1, (P, N)), jnp.float32)
     act = jnp.ones((P, N), bool)
     ref = gm_merge_batch(mean, cov, w, act, 4.0, K, 0)
-    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K,
-                                interpret=INTERPRET)
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K)
     assert int(got[4][0]) == int(ref[4][0]) > 0
 
 
 def test_filter_step_with_pallas_merge_matches():
-    """Full filter step: pallas merge (interpret) vs XLA merge."""
+    """Full filter step: merge kernel (interpret) vs XLA merge."""
     from phdslam_tpu.config import SlamConfig
     from phdslam_tpu.filters.phd import make_step_fn
     from phdslam_tpu.types import init_state
@@ -143,21 +148,12 @@ def random_case_3d(P, N, seed):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pallas_merge_3d_matches_xla(seed):
-    """3D kernel (disparity features) vs the generic XLA merge."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_3d
+    """D=3 kernel (disparity features) vs the generic XLA merge."""
     P, N, K = 4, 64, 16
     mean, cov, w, act = random_case_3d(P, N, seed)
     ref = gm_merge_batch(mean, cov, w, act, 4.0, K, 0)
-    got = gm_merge_pallas_batch_3d(mean, cov, w, act, 4.0, K,
-                                   interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K)
+    assert_same_merge(got, ref)
 
 
 def random_case_nd(P, N, D, seed):
@@ -176,65 +172,45 @@ def random_case_nd(P, N, D, seed):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pallas_merge_4d_matches_xla(seed):
-    """4D kernel (dynamic CV features) vs the generic XLA merge."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_4d
+    """D=4 kernel (dynamic CV features) vs the generic XLA merge."""
     P, N, K = 4, 64, 16
     mean, cov, w, act = random_case_nd(P, N, 4, seed)
     ref = gm_merge_batch(mean, cov, w, act, 4.0, K, 0)
-    got = gm_merge_pallas_batch_4d(mean, cov, w, act, 4.0, K,
-                                   interpret=INTERPRET)
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=1e-3, atol=2e-4)
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K)
+    assert_same_merge(got, ref, cov_atol=2e-4)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_pallas_merge_hellinger_matches_xla(seed):
-    """Hellinger metric in the 2D kernel vs the XLA merge."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch
+    """Hellinger metric in the D=2 kernel vs the XLA merge."""
     P, N, K = 4, 64, 16
     mean, cov, w, act = random_case(P, N, K, seed, cluster=True)
     ref = gm_merge_batch(mean, cov, w, act, 0.6, K, 1)
-    got = gm_merge_pallas_batch(mean, cov, w, act, 0.6, K,
-                                interpret=INTERPRET, metric=1)
-    np.testing.assert_allclose(np.asarray(got[2]), np.asarray(ref[2]),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(got[0]), np.asarray(ref[0]),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(ref[1]),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(got[3]), np.asarray(ref[3]))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
+    got = gm_merge_pallas_batch(mean, cov, w, act, 0.6, K, metric=1)
+    assert_same_merge(got, ref)
 
 
 def test_merge_terminates_on_nan_weights():
     """A NaN/non-positive active weight must not hang the while_loop (the
     per-particle counter only advances on emission; stalled rows drop)."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch
     P, N, K = 2, 64, 16
     mean, cov, w, act = random_case(P, N, K, 0)
     w = np.array(w, copy=True)
     w[0, :] = np.nan          # whole particle NaN
     w[1, :8] = 0.0            # some zero-weight active lanes
     out = gm_merge_pallas_batch(jnp.asarray(mean), jnp.asarray(cov),
-                                jnp.asarray(w), jnp.asarray(act), 4.0, K,
-                                interpret=INTERPRET)
+                                jnp.asarray(w), jnp.asarray(act), 4.0, K)
     # it RETURNED (no hang); the healthy particle still merged
     assert int(out[3][1]) > 0
 
 
 def test_width_switch_covers_non_tile_widths():
     """merge_batch_dispatch's lax.switch must include the FULL width as a
-    branch even when N is not a lane-tile multiple."""
+    branch even when N is not a power of two."""
     from phdslam_tpu.config import SlamConfig
     from phdslam_tpu.ops.gm_merge import gm_merge_batch, merge_batch_dispatch
     cfg = SlamConfig(min_separation=4.0, distance_metric=0, pallas_merge=2)
-    P, N, K = 2, 300, 16                   # N = 300: not a multiple of 128
+    P, N, K = 2, 300, 16                   # N = 300: not a power of two
     mean, cov, w, act = random_case(P, N, K, 1)
     mean, cov, w = mean[:, :N], cov[:, :N], w[:, :N]
     act = jnp.ones((P, N), bool)           # live everywhere -> needs full N
@@ -274,235 +250,97 @@ def test_uncompacted_layout_not_width_switched():
                                    rtol=1e-4, atol=1e-4)
 
 
-def test_fused_gather_merge_matches_two_kernel_route():
-    """The fused gather+combine+merge kernel (ops/pallas_merge.py
-    _merge_tables_kernel, cfg.fused_gather_merge=1) must produce exactly the
-    two-kernel route's results (Pallas one-hot gather -> packed planes ->
-    packed merge) on the full batched update, interpret mode."""
-    import dataclasses
-
-    import jax
-    import jax.numpy as jnp
-
-    from phdslam_tpu.config import SlamConfig
-    from phdslam_tpu.filters import phd
-
-    cfg = SlamConfig(
-        n_particles=8, max_features=16, max_measurements=8,
-        motion_type=0, feature_model=0, max_range=15.0, std_range=0.25,
-        std_bearing=0.02, clutter_rate=5.0, pd=0.95, birth_weight=0.05,
-        min_separation=2.0, seed=0, pallas_merge=2, pallas_detect=0,
-        merge_candidate_cap=64, detection_topk=4)
-    rng = np.random.default_rng(0)
-    P, K, M = cfg.n_particles, cfg.max_features, cfg.max_measurements
-    pose = jnp.asarray(rng.normal(0, 1, (P, 6)).astype(np.float32))
-    mean = jnp.asarray(rng.uniform(-10, 10, (P, K, 2)).astype(np.float32))
-    cov = jnp.asarray(np.broadcast_to(
-        np.eye(2, dtype=np.float32) * 0.3, (P, K, 2, 2)).copy())
-    weight = jnp.asarray((rng.random((P, K)) < 0.7).astype(np.float32)
-                         * rng.random((P, K)).astype(np.float32))
-    z = jnp.asarray(rng.uniform(0, 8, (M, 2)).astype(np.float32))
-    zm = jnp.asarray(np.arange(M) < 5)
-
-    def run(fused):
-        c = dataclasses.replace(cfg, fused_gather_merge=fused)
-        return jax.jit(lambda *a: phd._batched_update(*a, z, zm, c))(
-            pose, mean, cov, weight)
-
-    for a, b, name in zip(run(1), run(0),
-                          ("mean", "cov", "w", "dlogw", "overflow")):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-6, atol=1e-6, err_msg=name)
-
-
-# ---------------------------------------------------------------------------
-# Spatially-tiled merge (merge_spatial_tiles=4)
-# ---------------------------------------------------------------------------
-
-def _packed_sorted_prefix(mean, cov, w, act):
-    """Pack (mean, cov, w, act) into weight-sorted-prefix [P, 7, N] planes
-    as stage-2 compaction emits them."""
-    neg = jnp.where(act, -w, 1.0)
-    order = jnp.argsort(neg, axis=-1)
-    mean_s = jnp.take_along_axis(mean, order[..., None], axis=1)
-    cov_s = jnp.take_along_axis(cov, order[..., None, None], axis=1)
-    w_s = jnp.where(jnp.take_along_axis(act, order, axis=1),
-                    jnp.take_along_axis(w, order, axis=1), 0.0)
-    act_s = (w_s > 0)
-    return jnp.stack([w_s, act_s.astype(jnp.float32),
-                      mean_s[..., 0], mean_s[..., 1],
-                      cov_s[..., 0, 0], cov_s[..., 0, 1],
-                      cov_s[..., 1, 1]], axis=1)
-
-
-def _quadrant_case(P=4, N=320, seed=0, spread=1.0, n_act=180):
-    """Candidates in 4 blobs far apart (one per centroid quadrant):
-    cross-tile pairs within min_separation cannot exist, so the tiled
-    merge must reproduce the exact sequential greedy's cluster set."""
-    rng = np.random.default_rng(seed)
-    centers = np.array([[-10.0, -10.0], [-10.0, 10.0],
-                        [10.0, -10.0], [10.0, 10.0]])
-    idx = rng.integers(0, 4, (P, N))
-    mean = centers[idx] + rng.normal(0, spread, (P, N, 2))
-    cov = np.broadcast_to(np.eye(2) * 0.3, (P, N, 2, 2)).copy()
-    w = rng.uniform(0.05, 1, (P, N)).astype(np.float32)
-    act = np.arange(N)[None, :] < n_act
-    act = np.broadcast_to(act, (P, N)).copy()
-    return (jnp.asarray(mean, jnp.float32), jnp.asarray(cov, jnp.float32),
-            jnp.asarray(w), jnp.asarray(act))
-
-
-def _cluster_sets(mg):
-    """Per-particle clusters as (w, mx, my) rows lex-sorted by position —
-    order-insensitive comparison form."""
-    om, oc, ow = np.asarray(mg[0]), np.asarray(mg[1]), np.asarray(mg[2])
-    outs = []
-    for p in range(ow.shape[0]):
-        live = ow[p] > 0
-        rows = np.stack([ow[p][live], om[p, live, 0], om[p, live, 1],
-                         oc[p, live, 0, 0], oc[p, live, 0, 1],
-                         oc[p, live, 1, 1]], axis=1)
-        key = np.lexsort((rows[:, 2], rows[:, 1]))
-        outs.append(rows[key])
-    return outs
-
-
-def _dispatch(packed, tiles, out_cap=64, min_sep=4.0):
-    import dataclasses
-
-    from phdslam_tpu.config import SlamConfig
-    from phdslam_tpu.ops.gm_merge import merge_batch_dispatch_packed
-    cfg = SlamConfig(min_separation=min_sep, distance_metric=0,
-                     pallas_merge=2 if INTERPRET else 1,
-                     merge_spatial_tiles=tiles)
-    return merge_batch_dispatch_packed(packed, 2, cfg, out_cap,
-                                       sorted_prefix=True)
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_tiled_merge_exact_on_separated_quadrants(seed):
-    packed = _packed_sorted_prefix(*_quadrant_case(seed=seed))
-    ref = _dispatch(packed, 0, out_cap=128)
-    got = _dispatch(packed, 4, out_cap=128)
-    assert int(np.asarray(ref[4]).sum()) == 0   # no capacity drops
-    for r, g in zip(_cluster_sets(ref), _cluster_sets(got)):
-        assert r.shape == g.shape
-        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)
-    # the tiled n_merged is a prefix BOUND (T * max per-tile count);
-    # live-cluster counts themselves must match the exact merge
-    assert np.array_equal(
-        np.sum(np.asarray(got[2]) > 0, axis=1),
-        np.sum(np.asarray(ref[2]) > 0, axis=1))
-    np.testing.assert_array_equal(np.asarray(got[4]), np.asarray(ref[4]))
-
-
-def test_tiled_merge_conserves_mass_on_random_clusters():
-    """Generic (boundary-crossing) case: tiling may split a boundary pair
-    into two clusters, but total preserved mass is exact and the cluster
-    count can only grow vs the exact greedy (never lose mass/clusters)."""
-    mean, cov, w, act = random_case(4, 320, 64, seed=5, cluster=True)
-    act = act & (jnp.arange(320)[None, :] < 260)
-    packed = _packed_sorted_prefix(mean, cov, w, act)
-    ref = _dispatch(packed, 0, out_cap=128)
-    got = _dispatch(packed, 4, out_cap=128)
-    w_in = float(jnp.sum(packed[:, 0]))
-    assert int(ref[4].sum()) == 0 and int(got[4].sum()) == 0
-    np.testing.assert_allclose(float(jnp.sum(got[2])), w_in, rtol=1e-5)
-    np.testing.assert_allclose(float(jnp.sum(ref[2])), w_in, rtol=1e-5)
-    n_ref = np.sum(np.asarray(ref[2]) > 0, axis=1)
-    n_got = np.sum(np.asarray(got[2]) > 0, axis=1)
-    assert np.all(n_got >= n_ref)
-    # n_merged reports the post-half prefix bound: every live lane of the
-    # interleaved output must sit inside it
-    K = 128
-    lanes = np.asarray(got[2]) > 0
-    last_live = np.where(lanes.any(1), K - np.argmax(lanes[:, ::-1], 1), 0)
-    assert np.all(last_live <= np.asarray(got[3]))
-
-
-def test_tiled_merge_overflow_falls_back_to_exact():
-    """When one tile exceeds the widest tile build, the dispatch takes the
-    exact untiled branch bit-for-bit."""
-    rng = np.random.default_rng(7)
-    P, N = 2, 512
-    # 420 near-coincident candidates + 92 far away: the centroid sits
-    # between, so one quadrant holds > 384 lanes -> untiled branch
-    mean = np.concatenate([
-        rng.normal(0, 0.05, (P, 420, 2)),
-        rng.normal(0, 1.0, (P, 92, 2)) + np.array([100.0, 100.0])], axis=1)
-    cov = np.broadcast_to(np.eye(2) * 0.3, (P, N, 2, 2)).copy()
-    w = rng.uniform(0.05, 1, (P, N)).astype(np.float32)
-    act = np.ones((P, N), bool)
-    packed = _packed_sorted_prefix(
-        jnp.asarray(mean, jnp.float32), jnp.asarray(cov, jnp.float32),
-        jnp.asarray(w), jnp.asarray(act))
-    ref = _dispatch(packed, 0, out_cap=128)
-    got = _dispatch(packed, 4, out_cap=128)
-    for a, b in zip(got[:3], ref[:3]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 @pytest.mark.parametrize("block", [4, 32])
 def test_merge_block_size_equivalent(block):
-    """The particle block groups rows for trip-latency amortization only
-    (cfg.merge_block): outputs must be identical at any block size."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
-    mean, cov, w, act = random_case(6, 64, 16, seed=9, cluster=True)
-    packed = _packed_sorted_prefix(mean, cov, w, act)
-    ref = gm_merge_pallas_batch_packed(packed, 4.0, 16,
-                                       interpret=INTERPRET, sorted_w=True)
-    got = gm_merge_pallas_batch_packed(packed, 4.0, 16, interpret=INTERPRET,
-                                       sorted_w=True, block=block)
-    for a, b in zip(got, ref):
+    """One program per particle: a particle's merge is bit-identical
+    whether it runs alone or inside a batch of ``block`` particles."""
+    mean, cov, w, act = sort_prefix(*random_case(block, 64, 16, seed=9))
+    batch = gm_merge_pallas_batch(mean, cov, w, act, 4.0, 16, sorted_w=True)
+    for p in (0, block - 1):
+        alone = gm_merge_pallas_batch(mean[p:p + 1], cov[p:p + 1],
+                                      w[p:p + 1], act[p:p + 1], 4.0, 16,
+                                      sorted_w=True)
+        for a, b in zip(alone, batch):
+            np.testing.assert_array_equal(np.asarray(a[0]),
+                                          np.asarray(b[p]))
+
+
+@pytest.mark.parametrize("N", [384, 768, 1536])
+def test_pow2_lane_padding_is_exact(N):
+    """Lane widths that are not powers of two are padded with inactive
+    lanes inside the kernel wrapper: the output equals both the kernel on
+    an explicitly padded input and the XLA reference."""
+    P, K = 2, 32
+    mean, cov, w, act = random_case(P, N, K, seed=N)
+    ref = gm_merge_batch(mean, cov, w, act, 4.0, K, 0)
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, K)
+    pad = 1 << (N - 1).bit_length()
+    padded = gm_merge_pallas_batch(
+        jnp.pad(mean, ((0, 0), (0, pad - N), (0, 0))),
+        jnp.concatenate([cov, jnp.broadcast_to(
+            jnp.eye(2, dtype=cov.dtype), (P, pad - N, 2, 2))], axis=1),
+        jnp.pad(w, ((0, 0), (0, pad - N))),
+        jnp.pad(act, ((0, 0), (0, pad - N))), 4.0, K)
+    for a, b in zip(got, padded):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert_same_merge(got, ref)
+
+
+@pytest.mark.parametrize("P", [1, 3, 7])
+def test_odd_particle_counts(P):
+    """Particle counts that are not a power of two (or a block multiple)
+    merge exactly like the reference."""
+    mean, cov, w, act = random_case(P, 64, 16, seed=P)
+    ref = gm_merge_batch(mean, cov, w, act, 4.0, 16, 0)
+    got = gm_merge_pallas_batch(mean, cov, w, act, 4.0, 16)
+    assert_same_merge(got, ref)
+
+
+@pytest.mark.parametrize("pallas_merge,platform,route", [
+    (0, "gpu", "xla"),
+    (1, "cpu", "xla"),
+    (1, "gpu", "kernel"),
+    (2, "cpu", "interpret"),
+    (2, "gpu", "interpret"),
+])
+def test_merge_route_by_platform(monkeypatch, pallas_merge, platform,
+                                 route):
+    """The knob resolves against the platform: the compiled kernel only on
+    a GPU, interpret mode only when forced, the XLA loop otherwise."""
+    from phdslam_tpu.config import SlamConfig
+    from phdslam_tpu.ops.gm_merge import merge_route
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert merge_route(SlamConfig(pallas_merge=pallas_merge)) == route
+
+
+@pytest.mark.parametrize("n", [64, 300, 512, 1536])
+def test_switch_widths(n):
+    """Width-switch branches: increasing powers of two from n/4, ending
+    with n itself, so every live count has a branch that holds it."""
+    from phdslam_tpu.ops.gm_merge import switch_widths
+    widths = switch_widths(n)
+    assert widths[-1] == n
+    assert widths == sorted(set(widths))
+    assert all(w & (w - 1) == 0 and w >= n // 4 for w in widths[:-1])
+
+
+def test_pack_unpack_roundtrip():
+    from phdslam_tpu.ops.gm_merge import unpack_planes
+    mean, cov, w, act = random_case_nd(3, 20, 4, seed=2)
+    packed = pack_planes(mean, cov, w, act)
+    assert packed.shape == (3, 2 + 4 + 10, 20)
+    for a, b in zip(unpack_planes(packed, 4), (mean, cov, w, act)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("sorted_w", [False, True])
-def test_merge_par_assign_bitequal(sorted_w):
-    """Prefix-claim assignment (cfg.merge_par_assign) must be BIT-equal to
-    the serial recurrence: a candidate is always claimed by its first
-    covering principal, so the cluster sets — and each cluster's masked
-    summation order — are identical (ops/pallas_merge.py)."""
-    from phdslam_tpu.ops.pallas_merge import gm_merge_pallas_batch_packed
-    mean, cov, w, act = random_case(6, 64, 16, seed=11, cluster=True)
-    packed = _packed_sorted_prefix(mean, cov, w, act) if sorted_w else \
-        jnp.stack([w, act.astype(w.dtype), mean[..., 0], mean[..., 1],
-                   cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]], axis=1)
-    ref = gm_merge_pallas_batch_packed(packed, 4.0, 16,
-                                       interpret=INTERPRET,
-                                       sorted_w=sorted_w)
-    got = gm_merge_pallas_batch_packed(packed, 4.0, 16, interpret=INTERPRET,
-                                       sorted_w=sorted_w, par_assign=True)
-    for a, b in zip(got, ref):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_merge_par_assign_bitequal_4d():
-    """4D prefix-claim assignment bit-equality (the mixed pipeline's
-    dynamic-map merge)."""
-    from phdslam_tpu.ops.pallas_merge import (_PAIRS4,
-                                              gm_merge_pallas_batch_packed_4d)
-    rng = np.random.default_rng(13)
-    P, N, K = 4, 48, 16
-    w = np.abs(rng.normal(1, 0.5, (P, N))).astype(np.float32)
-    act = (rng.random((P, N)) < 0.8).astype(np.float32)
-    w = w * act
-    order = np.argsort(-w, axis=1)
-    w = np.take_along_axis(w, order, axis=1)
-    act = np.take_along_axis(act, order, axis=1)
-    m4 = rng.uniform(-10, 10, (P, N, 4)).astype(np.float32)
-    base = rng.normal(size=(P, N, 4, 4)).astype(np.float32)
-    cov4 = np.einsum("pnij,pnkj->pnik", base, base) \
-        + 0.5 * np.eye(4, dtype=np.float32)
-    planes = [w, act] + [m4[..., i] for i in range(4)] \
-        + [cov4[..., a, b] for a, b in _PAIRS4]
-    packed = jnp.asarray(np.stack(planes, axis=1))
-    for sw in (False, True):
-        ref = gm_merge_pallas_batch_packed_4d(packed, 4.0, K,
-                                              interpret=INTERPRET,
-                                              sorted_w=sw)
-        got = gm_merge_pallas_batch_packed_4d(packed, 4.0, K,
-                                              interpret=INTERPRET,
-                                              sorted_w=sw, par_assign=True)
-        for a, b in zip(got, ref):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,metric", [(2, 0), (2, 1), (3, 0), (4, 0)])
+def test_kernel_compiled_on_gpu_matches_xla(gpu_device, D, metric):
+    """The kernel compiled for the card (no interpret mode) vs the XLA
+    reference; skips without a CUDA GPU (run by chip_smoke.py)."""
+    mean, cov, w, act = sort_prefix(*random_case_nd(8, 300, D, seed=D))
+    sep = 0.6 if metric else 4.0
+    ref = gm_merge_batch(mean, cov, w, act, sep, 32, metric)
+    got = gm_merge_pallas(pack_planes(mean, cov, w, act), D, sep, 32,
+                          metric=metric, sorted_w=True)
+    assert_same_merge(got, ref, cov_atol=2e-4)

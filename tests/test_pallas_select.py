@@ -1,39 +1,28 @@
-"""Pallas one-hot row-gather kernel vs the XLA one-hot matmul fallback.
+"""Candidate row/column gathers (ops/gather.py) vs a numpy reference.
 
-The kernel (ops/pallas_select.py) must produce EXACT row copies — both
-routes copy f32 rows bit-for-bit (the one-hot dot accumulates exactly one
-term), so equality is exact, not approximate.
+A gather is an exact copy, so equality is bit-for-bit, not approximate.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from phdslam_tpu.ops.pallas_select import (onehot_cols_batch,
-                                           onehot_cols_xla,
-                                           onehot_rows_batch,
-                                           onehot_rows_xla)
-
-INTERPRET = True  # CPU CI: run the Mosaic kernel in interpret mode
+from phdslam_tpu.ops.gather import take_cols, take_rows
 
 
 @pytest.mark.parametrize("P,cap,R,C", [
     (16, 64, 32, 16),     # K-table shape class
     (16, 64, 8, 8),       # M-table shape class (small R)
-    (5, 33, 7, 3),        # ragged: P not a block multiple, odd dims
+    (5, 33, 7, 3),        # ragged: odd dims
     (1, 8, 4, 2),         # single particle
 ])
 def test_rows_match_xla(P, cap, R, C):
     rng = np.random.default_rng(0)
-    idx = jnp.asarray(rng.integers(0, R, (P, cap)), jnp.int32)
-    tab = jnp.asarray(rng.normal(size=(P, R, C)).astype(np.float32))
-    out_k = onehot_rows_batch(idx, tab, interpret=INTERPRET)
-    out_x = onehot_rows_xla(idx, tab)
-    np.testing.assert_array_equal(np.asarray(out_k), np.asarray(out_x))
-    # spot-check against a plain numpy gather
-    ref = np.take_along_axis(np.asarray(tab),
-                             np.asarray(idx)[:, :, None], axis=1)
-    np.testing.assert_array_equal(np.asarray(out_k), ref)
+    idx = rng.integers(0, R, (P, cap)).astype(np.int32)
+    tab = rng.normal(size=(P, R, C)).astype(np.float32)
+    out = take_rows(jnp.asarray(idx), jnp.asarray(tab))
+    ref = np.take_along_axis(tab, idx[:, :, None], axis=1)
+    np.testing.assert_array_equal(np.asarray(out), ref)
 
 
 @pytest.mark.parametrize("P,cap,R,C", [
@@ -43,12 +32,46 @@ def test_rows_match_xla(P, cap, R, C):
 ])
 def test_cols_match_xla(P, cap, R, C):
     rng = np.random.default_rng(1)
-    idx = jnp.asarray(rng.integers(0, R, (P, cap)), jnp.int32)
-    tab_t = jnp.asarray(rng.normal(size=(P, C, R)).astype(np.float32))
-    out_k = onehot_cols_batch(idx, tab_t, interpret=INTERPRET)
-    out_x = onehot_cols_xla(idx, tab_t)
-    np.testing.assert_array_equal(np.asarray(out_k), np.asarray(out_x))
+    idx = rng.integers(0, R, (P, cap)).astype(np.int32)
+    tab_t = rng.normal(size=(P, C, R)).astype(np.float32)
+    out = take_cols(jnp.asarray(idx), jnp.asarray(tab_t))
     ref = np.take_along_axis(
-        np.asarray(tab_t),
-        np.broadcast_to(np.asarray(idx)[:, None, :], (P, C, cap)), axis=2)
-    np.testing.assert_array_equal(np.asarray(out_k), ref)
+        tab_t, np.broadcast_to(idx[:, None, :], (P, C, cap)), axis=2)
+    np.testing.assert_array_equal(np.asarray(out), ref)
+
+
+@pytest.mark.parametrize("take", ["rows", "cols"])
+def test_gather_boundary_indices(take):
+    """First and last rows, repeated indices, and non-finite table values
+    are copied exactly (a one-hot product would turn inf/NaN rows into NaN
+    everywhere)."""
+    P, R, C = 3, 9, 5
+    rng = np.random.default_rng(2)
+    tab = rng.normal(size=(P, R, C)).astype(np.float32)
+    tab[:, R - 1, 0] = np.inf
+    tab[:, 0, 1] = np.nan
+    idx = np.array([[0, R - 1, R - 1, 0, 4]] * P, np.int32)
+    if take == "rows":
+        out = np.asarray(take_rows(jnp.asarray(idx), jnp.asarray(tab)))
+        ref = np.take_along_axis(tab, idx[:, :, None], axis=1)
+    else:
+        tab_t = np.swapaxes(tab, 1, 2).copy()
+        out = np.asarray(take_cols(jnp.asarray(idx), jnp.asarray(tab_t)))
+        ref = np.take_along_axis(
+            tab_t, np.broadcast_to(idx[:, None, :], (P, C, idx.shape[1])),
+            axis=2)
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_gather_unbatched_and_two_batch_axes():
+    """The gathers take any number of leading batch axes, including none
+    (the single-particle paths)."""
+    rng = np.random.default_rng(3)
+    tab = rng.normal(size=(2, 3, 6, 4)).astype(np.float32)
+    idx = rng.integers(0, 6, (2, 3, 5)).astype(np.int32)
+    out = np.asarray(take_rows(jnp.asarray(idx), jnp.asarray(tab)))
+    np.testing.assert_array_equal(
+        out, np.take_along_axis(tab, idx[..., None], axis=2))
+    out1 = np.asarray(take_rows(jnp.asarray(idx[0, 0]),
+                                jnp.asarray(tab[0, 0])))
+    np.testing.assert_array_equal(out1, tab[0, 0][idx[0, 0]])

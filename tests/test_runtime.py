@@ -53,7 +53,7 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
     cfg = small_cfg()
     state = init_state(cfg)
     path = str(tmp_path / "ckpt_np")
-    save_checkpoint(path, state, backend="numpy")
+    save_checkpoint(path, state)
 
     cfg2 = small_cfg(n_particles=cfg.n_particles * 2)
     with pytest.raises(ValueError, match="shape mismatch"):
@@ -215,7 +215,7 @@ def test_checkpoint_resume_sharded(tmp_path):
     from phdslam_tpu.parallel.sharding import shard_state
 
     assert jax.device_count() >= 8
-    mesh = make_mesh(8)
+    mesh = make_mesh(8, devices=jax.devices("cpu"))
     cfg = small_cfg(n_particles=16)
     step = make_sharded_step_fn(cfg, mesh, donate=False)
     z = jnp.asarray([[5.0, 0.2], [7.0, -0.3]] + [[0, 0]] * 6, jnp.float32)
@@ -234,7 +234,8 @@ def test_checkpoint_resume_sharded(tmp_path):
     save_checkpoint(path, st)
 
     restored = load_checkpoint(path, init_state(cfg))   # host pytree
-    st2 = shard_state(make_mesh(8), restored)           # back onto a mesh
+    st2 = shard_state(make_mesh(8, devices=jax.devices("cpu")),
+                      restored)                         # back onto a mesh
     for n in range(3, 6):
         st2, out = step(st2, z, mask, ctrl, jnp.float32(0.1),
                         jnp.asarray(True))

@@ -2,8 +2,8 @@
 
 The reference has no multi-node story (SURVEY.md §5: single process, single
 GPU); BASELINE.md asks for filter rate "at 1 chip, 1 host, and N>=2 hosts".
-Real multi-host TPU hardware is not available in this environment, so this
-harness runs the ACTUAL multi-host code path — ``jax.distributed.initialize``
+This harness runs on the CPU only (virtual devices). It runs the ACTUAL
+multi-host code path — ``jax.distributed.initialize``
 (phdslam_tpu.parallel.distributed), a global mesh spanning the processes, and
 the same jit + NamedSharding step — as N separate OS processes with 4 virtual
 CPU devices each, wired together over the Gloo collectives backend. Every
@@ -98,7 +98,7 @@ def _child(rank: int, nproc: int, port: int, steps: int, particles: int):
 
     if save_ckpt:
         # all-gather the sharded state to replicated, read the local copy,
-        # save from rank 0 (orbax/numpy host checkpoint)
+        # save from rank 0 (host checkpoint)
         from jax.sharding import NamedSharding, PartitionSpec
         repl = jax.jit(
             lambda s: s,
@@ -108,11 +108,8 @@ def _child(rank: int, nproc: int, port: int, steps: int, particles: int):
         host_state = jax.tree.map(
             lambda x: np.asarray(x.addressable_data(0)), repl)
         if rank == 0:
-            # numpy backend: orbax's multi-host save has internal sync
-            # barriers that mismatch when only rank 0 saves the
-            # already-gathered host state
             from phdslam_tpu.runtime.checkpoint import save_checkpoint
-            save_checkpoint(save_ckpt, host_state, backend="numpy")
+            save_checkpoint(save_ckpt, host_state)
         if nproc > 1:
             from jax.experimental import multihost_utils
             multihost_utils.sync_global_devices("ckpt_saved")

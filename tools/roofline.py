@@ -8,10 +8,9 @@ bandwidth/compute against the chip's roofline: time_bound = max(bytes / BW,
 flops / peak). Stages whose measured time approaches the bound are at
 speed-of-light; the report states which resource bounds each stage.
 
-Peak numbers are the public TPU v5e specs (197 TFLOP/s bf16 MXU — f32
-matmul runs as multi-pass, modeled at 1/4 peak; ~819 GB/s HBM). The VPU
-elementwise bound is modeled as 8x128 lanes x 4 ALUs at ~0.94 GHz ≈ 3.8
-Tops/s f32.
+Peaks come from ``PEAKS``, keyed by ``jax.devices()[0].device_kind``, with
+their source. A device that is not in the table is an error, not a
+default: the table is filled when the benchmark is defined for a card.
 
 Usage: python tools/roofline.py [P] [cfg_path] — prints a table + one
 JSON line. cfg_path defaults to cfg/ackerman.cfg; pass cfg/dense.cfg to
@@ -25,9 +24,17 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-HBM_GBS = 819e9
-MXU_F32 = 197e12 / 4.0
-VPU_F32 = 3.8e12
+# device_kind -> {"hbm_bytes_s": ..., "f32_flops_s": ..., "source": ...}
+PEAKS: dict = {}
+
+
+def device_peaks():
+    import jax
+    kind = jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no roofline peaks for device kind {kind!r}; add "
+                       "them to tools/roofline.py PEAKS with their source")
+    return PEAKS[kind]
 
 
 def measure(fn, *args, n=20):
@@ -48,8 +55,10 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from phdslam_tpu.runtime.compile_cache import configure_compile_cache
+    configure_compile_cache()
+    peaks = device_peaks()
+    hbm, flops_s = peaks["hbm_bytes_s"], peaks["f32_flops_s"]
 
     from phdslam_tpu.config import load_config
     from phdslam_tpu.filters import phd
@@ -73,8 +82,8 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
     rows = []
 
     def add(name, t, bytes_, flops, note):
-        t_bw = bytes_ / HBM_GBS
-        t_fl = flops / (MXU_F32 if "MXU" in note else VPU_F32)
+        t_bw = bytes_ / hbm
+        t_fl = flops / flops_s
         bound = max(t_bw, t_fl)
         rows.append(dict(stage=name, ms=t * 1e3, bound_ms=bound * 1e3,
                          sol=bound / t, gbs=bytes_ / t / 1e9,
@@ -86,7 +95,7 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
     t = measure(pre_fn, pose, mean, cov)
     by = P * K * (2 + 4) * f4 + P * K * (4 + 4 + 1 + 4 + 2 + 2 + 3) * f4
     fl = P * K * 120
-    add("ekf_preupdate [P,K]", t, by, fl, "VPU")
+    add("ekf_preupdate [P,K]", t, by, fl, "FLOP")
     pre = jax.jit(pre_fn)(pose, mean, cov)
 
     # --- detection likelihood grid [P,M,K] --------------------------------
@@ -95,25 +104,7 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
     t = measure(det_fn, pre, weight)
     by = P * K * 7 * f4 + P * M * K * f4          # planes in, pdw out
     fl = P * M * K * 20
-    add("detection grid [P,M,K]", t, by, fl, "VPU")
-
-    # --- fused detection + top-T kernel ------------------------------------
-    from phdslam_tpu.filters.phd import _detection_planes_single
-    from phdslam_tpu.ops.pallas_detect import detection_topT_batch
-    planes_fn = lambda p_, m_, c_, w_: jax.vmap(
-        lambda p, m, c, w: _detection_planes_single(p, m, c, w, cfg))(
-        p_, m_, c_, w_)
-    planes = jax.jit(planes_fn)(pose, mean, cov, weight)
-    z4 = jnp.stack([z[:, 0], z[:, 1], zmask.astype(jnp.float32),
-                    jnp.zeros_like(z[:, 0])], axis=1)
-    T_k = cfg.detection_topk
-    det_kfn = lambda pl_: detection_topT_batch(
-        pl_, z4, T_k, float(cfg.min_feature_weight),
-        float(cfg.clutter_density + cfg.birth_weight))
-    t = measure(det_kfn, planes)
-    by = P * 6 * K * f4 + P * M * (2 * T_k + 2) * f4
-    add("fused detect+topT kernel", t, by, P * M * K * (30 + T_k * 3),
-        "VPU")
+    add("detection grid [P,M,K]", t, by, fl, "FLOP")
 
     # --- full pre half (grid + selection + candidate gather) --------------
     full_pre = lambda p_, m_, c_, w_: jax.vmap(
@@ -124,15 +115,15 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
           + P * M * K * f4 * 3                    # pdw materialize + 2 passes
           + P * cap * (2 + 4 + 1) * f4)           # candidates out
     fl = P * M * K * 30 + P * cap * K * 16 * 2
-    add("update pre-half (fused)", t, by, fl, "VPU")
+    add("update pre-half", t, by, fl, "FLOP")
     pre_out = jax.jit(full_pre)(pose, mean, cov, weight)
 
-    # --- Pallas greedy merge ----------------------------------------------
+    # --- greedy merge ----------------------------------------------
     from phdslam_tpu.ops.gm_merge import merge_batch_dispatch_packed
     if pre_out["gather"] is not None:
         cand_fn = jax.jit(lambda p_: phd._finish_candidates_packed(p_, 2))
         t = measure(cand_fn, pre_out)
-        rows.append(dict(stage="candidate gather (pallas)", ms=t * 1e3,
+        rows.append(dict(stage="candidate gather", ms=t * 1e3,
                          bound_ms=None, sol=None, gbs=None, bound_by="",
                          note="deferred batch gather, packed planes"))
         packed = cand_fn(pre_out)
@@ -146,9 +137,9 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
         t = measure(mfn2, cm, cc, cw, ca)
         mg = jax.jit(mfn2)(cm, cc, cw, ca)
     by = P * 7 * cap * f4 + P * 8 * K * f4
-    # VPU work is data-dependent (~clusters x N x ~40 lane-ops); report
-    # HBM-roofline + achieved cluster rate instead
-    add("pallas greedy merge", t, by, 0, "VPU-loop")
+    # the loop's work is data-dependent (~clusters x N x ~40 lane-ops);
+    # report the memory roofline + achieved cluster rate instead
+    add("greedy merge", t, by, 0, "loop")
     import numpy as np
     clusters = float(jnp.sum(mg[3]))
     rows[-1]["note"] = (f"data-dep loop: {clusters/P:.0f} clusters/particle, "
@@ -161,8 +152,8 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
     t = measure(post, mg, pre_out, mean, cov, weight)
     n_all = K + cap
     by = P * n_all * (2 + 4 + 1) * f4 + P * K * (2 + 4 + 1) * f4
-    fl = P * K * n_all * 7 * 2                    # one-hot row-move matmuls
-    add("update post-half", t, by, fl, "MXU")
+    fl = P * K * n_all * 2                        # sort compares (approx)
+    add("update post-half", t, by, fl, "FLOP")
 
     # --- full batched update ------------------------------------------------
     t = measure(lambda p_, m_, c_, w_: phd._batched_update(
@@ -171,7 +162,8 @@ def main(P=512, cfg_path="cfg/ackerman.cfg"):
                      sol=None, gbs=None, bound_by="", note="end-to-end"))
 
     print(f"\nRoofline @ P={P}, K={K}, M={M}, cap={cap} "
-          f"(v5e: {HBM_GBS/1e9:.0f} GB/s HBM)")
+          f"({jax.devices()[0].device_kind}: {hbm/1e9:.0f} GB/s, "
+          f"{peaks['source']})")
     print(f"{'stage':28s} {'ms':>8s} {'bound ms':>9s} {'SoL':>6s} "
           f"{'GB/s':>7s}  bound/note")
     for r in rows:
